@@ -54,7 +54,7 @@ def main() -> None:
     import jax
 
     print(f"corpus: {n} x {d} (backend={jax.default_backend()}; on CPU the "
-          "exact matmul uses BLAS so Hamming shows no speedup — run on TPU "
+          "exact matmul uses BLAS so Hamming shows no speedup — run on a GPU "
           "for the real ratio)")
     print(f"compression: {fp32_kb:.0f} KB -> {packed_kb:.0f} KB "
           f"({fp32_kb / packed_kb:.1f}x)   [reference: 28.5x]")
@@ -66,9 +66,9 @@ def main() -> None:
     print(f"recall@5 two-stage:    {recall(two):.1%}   "
           f"(rescore fixes what the reference lost), {exact_s / two_s:.1f}x vs exact")
 
-    # asymmetric prescan (the default): same MXU matmul as Hamming, but the
+    # asymmetric prescan (the default): same matmul as Hamming, but the
     # query keeps its real values — prescan-only ranking already beats
-    # Hamming-only by ~3x on isotropic data (bench/binary_asym_ab.py)
+    # Hamming-only on isotropic data
     asym_only = BinaryDeviceIndex(
         d, storage_dtype="float32", initial_capacity=16384,
         keep_vectors=False, prescan="asym")

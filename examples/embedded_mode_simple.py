@@ -21,7 +21,7 @@ def main() -> None:
         docs = [
             Document(id="rust", title="Rust", content="systems programming with memory safety"),
             Document(id="jax", title="JAX", content="composable function transformations on accelerators"),
-            Document(id="tpu", title="TPU", content="matrix units and high bandwidth memory"),
+            Document(id="gpu", title="GPU", content="tensor cores and high bandwidth memory"),
             Document(id="pasta", title="Pasta", content="boil water, add salt, cook al dente"),
         ]
         db.upsert(docs)

@@ -1,17 +1,13 @@
-"""Int8-resident IVF demo — the TPU bandwidth + capacity engine.
+"""Int8-resident IVF demo — the bandwidth + capacity engine.
 
 No reference analog (the reference's IVF trained k-means but linear-scanned,
 index.rs:620-640; its quantization stops at 1-bit binary). This engine exists
-because the TPU memory system rewards it: the Pallas DMA probe streams each
-probed list as one contiguous block, and int8 codes halve the bytes per list
-— measured on one v5e chip at 1M x 768 (docs/benchmarks.md):
-
-  raw int8 probe      722k-1.1M QPS @ recall 0.92
-  + bf16 rescore r=32 ~380k QPS     @ recall 0.998
-  int8-only capacity  8.39M rows in 11.8 GB @ 255k QPS
+because device memory bandwidth rewards it: the probe reads each probed list
+in place, and int8 codes halve the bytes per list (and double the rows a
+device holds in the codes-only config).
 
 This demo runs the same flows at toy scale on whatever backend is available
-(CPU uses the XLA fallback probe; the numbers are NOT representative).
+(the CPU uses the XLA probe; a GPU the probe kernel).
 """
 
 import time

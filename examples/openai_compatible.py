@@ -27,7 +27,7 @@ def main() -> None:
 
     texts = [
         "the mitochondria is the powerhouse of the cell",
-        "TPUs multiply matrices very fast",
+        "GPUs multiply matrices very fast",
         "a recipe for sourdough bread",
         "matrix multiplication on accelerators",
     ]

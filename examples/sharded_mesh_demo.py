@@ -2,8 +2,8 @@
 index is mesh-sharded over every local device.
 
 Run on any machine — the demo forces an 8-device virtual CPU mesh, the same
-code path a real multi-chip TPU host takes (`jax.sharding.Mesh` + shard_map
-local top-k + one all_gather over ICI).
+code path a real multi-GPU host takes (`jax.sharding.Mesh` + shard_map
+local top-k + one all_gather over NVLink).
 
 Shows:
 - kind="sharded_ivf_int8" through the ordinary VectorDatabase facade
@@ -82,8 +82,8 @@ def main() -> None:
     db3.batch_add_documents(docs[:100])
     print("auto_shard upgraded 'flat' ->", db3.stats().index_kind)
 
-    # 4) capacity tier: PCA-projected int8 (the MXU-native way below int8's
-    #    bytes/row — PQ's LUT/ADC scan is gather-bound on TPU)
+    # 4) capacity tier: PCA-projected int8 (the matmul-friendly way below
+    #    int8's bytes/row — PQ's LUT/ADC scan is gather-bound)
     cfg4 = VectorDbConfig(vector_dimension=256)
     cfg4.index.kind = "ivf_int8_proj"
     cfg4.index.proj_dim = 128

@@ -1,8 +1,8 @@
-"""grape_vector_db_tpu — a TPU-native vector database framework.
+"""grape_vector_db_tpu — a vector database framework for NVIDIA GPUs.
 
 A from-scratch rebuild of the capability surface of ``putao520/grape-vector-db``
-(a Rust/sled/HNSW vector DB) designed TPU-first: the search core is batched
-JAX/XLA/Pallas kernels over HBM-resident vector shards (chunked matmul + top-k,
+(a Rust/sled/HNSW vector DB) designed accelerator-first: the search core is
+batched JAX/XLA/Pallas kernels over device-resident vector shards (chunked matmul + top-k,
 XOR+popcount Hamming pre-scan, masked filtered search), the corpus shards across
 a ``jax.sharding.Mesh`` with per-shard top-k merged by one all_gather, and the
 host side provides storage/WAL, hybrid BM25 fusion, filtering, lifecycle,

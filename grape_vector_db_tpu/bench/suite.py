@@ -229,7 +229,7 @@ class BenchmarkSuite:
 
     def run_batched_dense(self, batch: int = 64,
                           name: str = "dense_batched") -> BenchmarkResult:
-        """Batched device path — the TPU-native serving regime."""
+        """Batched device path — the accelerator serving regime."""
         assert self.db is not None
         c = self.config
         qs = np.stack([q for q, _ in self._queries[c.warmup_queries:]])

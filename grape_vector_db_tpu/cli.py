@@ -13,6 +13,7 @@ Subcommands mirror the reference's binaries and workloads:
 - ``fusion-benchmark``     the 8-strategy fusion comparison with
                            precision/recall/NDCG@10 (src/benchmark.rs)
 - ``serve``                start the gRPC + REST single-node server
+                           (``--rest-only``: the stdlib REST server alone)
 
 Usage: ``python -m grape_vector_db_tpu.cli <subcommand> [options]``
 """
@@ -201,12 +202,34 @@ def cmd_fusion_benchmark(args) -> None:
 def cmd_serve(args) -> None:
     """Single-node server, or one member of a multi-process cluster when
     --node-id/--peers are given (peers: comma list of id=host:port, including
-    this node; raft + data plane run over the gRPC Internal transport)."""
+    this node; raft + data plane run over the gRPC Internal transport).
+
+    ``--rest-only`` serves the stdlib REST surface without gRPC (no grpcio or
+    protobuf needed). Cluster members run one process per accelerator: a JAX
+    process reserves most of a GPU's memory when it starts, so members that
+    share a card must each be given a share with
+    ``XLA_PYTHON_CLIENT_MEM_FRACTION`` (e.g. 0.3 for three members)."""
     from grape_vector_db_tpu import VectorDatabase, VectorDbConfig, load_config
-    from grape_vector_db_tpu.server.grpc_server import build_grpc_server
     from grape_vector_db_tpu.server.rest import RestServer
 
     cfg = load_config(args.config) if args.config else VectorDbConfig()
+    if args.rest_only:
+        if args.peers:
+            raise SystemExit("--rest-only serves one node; cluster members "
+                             "talk over gRPC")
+        db = VectorDatabase(path=args.data_dir, config=cfg)
+        rest = RestServer(db, host=args.host, port=args.rest_port,
+                          tls=cfg.tls)
+        host, rport = rest.start()
+        print(f"grape-vector-db-tpu serving: rest={host}:{rport}", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            rest.stop()
+            db.close()
+        return
+    from grape_vector_db_tpu.server.grpc_server import build_grpc_server
 
     node = None
     adapter = None
@@ -320,7 +343,7 @@ def main(argv=None) -> None:
                     help="tune against synthesized held-out queries with a "
                          "joint nprobe x host_rescore sweep (the self-recall "
                          "default overstates probe reachability on capacity "
-                         "tiers — see docs/benchmarks.md cap16m_hard)")
+                         "tiers)")
     sp.set_defaults(fn=cmd_tune)
 
     sp = sub.add_parser("serve")
@@ -335,9 +358,14 @@ def main(argv=None) -> None:
                     help="cluster mode: comma list of id=host:port incl. self")
     sp.add_argument("--shard-count", type=int, default=16)
     sp.add_argument("--replica-count", type=int, default=2)
+    sp.add_argument("--rest-only", action="store_true",
+                    help="serve the REST surface alone (no gRPC)")
     sp.set_defaults(fn=cmd_serve)
 
     args = p.parse_args(argv)
+    from grape_vector_db_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

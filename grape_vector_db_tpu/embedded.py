@@ -1,7 +1,7 @@
 """EmbeddedVectorDB — in-process mode with full lifecycle management.
 
 Rebuilds the reference's embedded mode (src/embedded.rs): the single-process
-deployment — one host plus its TPU chips — with a blocking API, a lifecycle
+deployment — one host plus its GPUs — with a blocking API, a lifecycle
 state machine (Initializing/Ready/Busy/ShuttingDown/Closed, embedded.rs:22-29,
 460-473), warmup (embedded.rs:436-458 — here: device jit warm + store page
 touch), a LifecycleManager with shutdown hooks (embedded.rs:106-178), a
@@ -101,7 +101,7 @@ class EmbeddedVectorDB:
             path=self.config.data_dir, config=self.config.db, **db_kwargs
         )
         # Micro-batching executor: packs concurrent single-query calls into one
-        # device batch (services/concurrent.py; the TPU analog of the
+        # device batch (services/concurrent.py; the accelerator analog of the
         # reference's rayon parallel search).
         from grape_vector_db_tpu.services.concurrent import BatchingExecutor
 

@@ -105,8 +105,8 @@ class FilterEngine:
             self._refresh_stats_locked()
 
     def _index_locked(self, id_: str, metadata: Dict[str, Any]) -> None:
-        # Ingest hot loop (8.1 us/doc measured -> ~1/3 of the end-to-end
-        # write budget at 39k docs/s): exact-type dispatch instead of the
+        # Ingest hot loop (once per document per batch): exact-type
+        # dispatch instead of the
         # isinstance cascade, and an explicit stack instead of the _flatten
         # generator. Exotic values (numpy scalars, subclasses) fall through
         # to the original isinstance path so semantics are unchanged.

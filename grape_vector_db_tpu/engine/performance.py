@@ -8,7 +8,7 @@
   gauges (metrics.rs:412-452).
 
 ParallelSearchExecutor's job (multi-query batching, parallel_search.rs) is
-subsumed by services/concurrent.BatchingExecutor — on TPU the batch dimension
+subsumed by services/concurrent.BatchingExecutor — on a device the batch dimension
 IS the parallelism.
 """
 

@@ -256,8 +256,8 @@ class QueryEngine:
                 # predicate. On full-scan indexes (mask_exact) that is the
                 # exact top-k over allowed rows at any selectivity. On the
                 # probe-based IVF family the in-probe mask only covers the
-                # probed lists (measured: recall 0.13-0.14 vs the masked
-                # oracle at 1% selectivity on the 16.78M int4 tier), so low
+                # probed lists (allowed rows in unprobed lists are never
+                # seen, so recall collapses at low selectivity), so low
                 # selectivity routes to an exact tier instead:
                 #   |allowed| <= filter_exact_max     -> host full-precision
                 #   |allowed| <  exhaustive_below * N -> exact device tier
@@ -450,7 +450,7 @@ class QueryEngine:
         with QueryTimer(self.metrics):
             return self.hybrid.search(req, allowed_ids=allowed)
 
-    # -- batched dense search (TPU-native primary path) ------------------------------------------
+    # -- batched dense search (the device-native primary path) ------------------------------------------
 
     def vector_search_batch(
         self, vectors: np.ndarray, limit: int

@@ -46,8 +46,8 @@ _TOKEN_RE = re.compile(r"[a-z0-9_]+", re.IGNORECASE)
 
 
 def _is_cjk(ch: str) -> bool:
-    # Codepoint-range check, NOT unicodedata.name: the per-character name
-    # lookup was ~10% of the whole end-to-end write path (bench profile).
+    # Codepoint-range check, NOT unicodedata.name: a per-character name
+    # lookup is a dictionary search on the ingest hot path.
     # Ranges: CJK Unified (+ext A), compatibility ideographs, and the SIP
     # planes — the same set "CJK in name" matched for ideographs.
     cp = ord(ch)
@@ -168,7 +168,7 @@ def _native_batch_counts(lib, texts: Sequence[str]):
     term_cap = max(2 * len(blob) + 64, 4096)
     pair_cap = max(len(blob) // 2, 256)
     # Thread-local buffer reuse: create_string_buffer zero-fills ~1 MB per
-    # call (measured ~0.5-2.5 ms/batch). Safe because every consumer of the
+    # call. Safe because every consumer of the
     # returned slices copies before this can be called again on the thread
     # (fancy-indexing/astype in add_documents materialize new arrays) and
     # the C++ side fully writes dt and the first rc pair entries.
@@ -462,7 +462,7 @@ class SparseIndex:
         (native/gvdb_text.cpp::gvdb_tokenize_batch) + postings extended in
         per-term groups instead of per-(doc, term) appends. The reference
         adds per document (sparse.rs:95-134); this is the write-path hot
-        loop, so the batch form is the product path (VERDICT r2 item 4)."""
+        loop, so the batch form is the product path."""
         if len(doc_ids) != len(texts):
             raise ValueError("doc_ids/texts length mismatch")
         lib = _native_text_lib() if self.tokenizer._native_ok else None
@@ -537,8 +537,8 @@ class SparseIndex:
                 return
             # batch-local term id -> global vocab id (-1: vocabulary full).
             # Inlined _term_id with locals: this loop runs once per unique
-            # term per batch and the attribute/np-scalar overhead of the
-            # naive form measured 18 ms/4096-doc batch vs ~4 ms inlined.
+            # term per batch, and the naive form pays attribute and
+            # np-scalar overhead on every pass.
             vocab = self._vocab
             postings = self._postings
             vocab_get = vocab.get

@@ -3,7 +3,7 @@
 Mirrors the reference's ``VectorIndex`` trait (index.rs:35-62):
 add / add_batch / search / remove / len / optimize / clear / get_stats,
 plus ``get_all`` for persistence (index.rs:120-137) and batched ``search_batch``
-(the TPU-native primary entry point — single-query search delegates to it).
+(the device-native primary entry point — single-query search delegates to it).
 
 All host-facing array types are numpy; device residency is an implementation
 detail of each index.
@@ -48,8 +48,8 @@ class VectorIndex(abc.ABC):
     #: rows at ANY selectivity. Full-scan indexes (flat/int8/binary) fuse
     #: the mask into a corpus-wide scan, so yes. Probe-based indexes (the
     #: IVF family) only mask the probed lists — allowed rows in unprobed
-    #: lists are invisible (measured: recall 0.13 vs the masked oracle at
-    #: 1% selectivity on the 16.78M int4 tier) — so the planner applies a
+    #: lists are invisible, so recall collapses at low selectivity — so
+    #: the planner applies a
     #: selectivity-aware fallback when this is False.
     mask_exact: bool = True
 

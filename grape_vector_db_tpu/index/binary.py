@@ -1,29 +1,26 @@
 """BinaryDeviceIndex — two-stage search: packed-bit pre-scan + exact rescore.
 
-TPU-native rebuild of the reference's binary quantization pipeline
+Device-native rebuild of the reference's binary quantization pipeline
 (quantization.rs:86-193 `BinaryQuantizer::{quantize,hamming_distance,
 multi_stage_search}`): vectors are threshold-binarized into packed uint32
 bit-planes stored alongside the full-precision shard arrays. A query first runs
-a pre-scan over the packed planes (32x less HBM traffic than the float scan),
+a pre-scan over the packed planes (32x less memory traffic than the float scan),
 takes the best ``rescore_k`` candidates, then rescores exactly with a batched
 gather + dot-product and returns the true top-k. The default pre-scan is
-ASYMMETRIC — dot(q_unit, sign(x)), the same MXU matmul as the Hamming form but
-with the real-valued query — because the rescore gather is per-ROW bound
-(bench/binary_profile3.py) so a better prescan is the only recall lever that
-doesn't cost QPS: +0.26-0.33 recall@10 at equal budget on isotropic corpora
-(bench/binary_asym_ab.py). ``prescan="hamming"`` restores the reference's
-symmetric XOR/popcount ranking.
+ASYMMETRIC — dot(q_unit, sign(x)), the same matmul as the Hamming form but
+with the real-valued query — because the rescore gather is a per-row cost, so
+a better prescan is the recall lever that doesn't cost QPS.
+``prescan="hamming"`` restores the reference's symmetric XOR/popcount
+ranking.
 
 The reference measured Recall@5 = 17% for Hamming-only search
 (docs/week5-6-binary-quantization.md:62); with rescoring this index holds
 recall near 1.0.
 
-TPU economics note (measured on v5e at 1M x 768): the packed pre-scan is
-popcount-compute-bound on the VPU (~22 ms/128-batch for k=1024 candidates)
-while the MXU runs the full bf16 scan in 2.2 ms (approx) / 10.4 ms (exact).
-Binary quantization on TPU is therefore a *memory capacity* play — 32x more
-corpus per chip when full vectors are evicted — not a latency play. The same
-holds for PQ (index/pq.py). For HBM-resident corpora prefer kind="flat".
+Economics note: a full bf16 matmul scan is cheap on an accelerator, so binary
+quantization is a *memory capacity* play — 32x more corpus per device when
+full vectors are evicted — not a latency play. The same holds for PQ
+(index/pq.py). For device-resident corpora prefer kind="flat".
 """
 
 from __future__ import annotations
@@ -38,7 +35,7 @@ import numpy as np
 from grape_vector_db_tpu.index.base import SearchHit
 from grape_vector_db_tpu.index.flat import FlatDeviceIndex, _scatter_set
 from grape_vector_db_tpu.errors import DimensionMismatchError
-from grape_vector_db_tpu.ops.distance import prepare_queries
+from grape_vector_db_tpu.ops.distance import prepare_queries, rowwise_dots
 from grape_vector_db_tpu.ops.hamming import (asym_topk, hamming_topk,
                                              pack_bits, words_per_vector)
 from grape_vector_db_tpu.utils.buckets import next_bucket, pad_rows
@@ -80,13 +77,7 @@ def _rescore_topk(queries, vectors, norms, cand_idx, cand_dist, k: int, metric: 
     q = prepare_queries(queries, metric)
     cvecs = vectors[cand_idx]   # [B, R, D]
     cnorms = norms[cand_idx]    # [B, R]
-    precision = (
-        jax.lax.Precision.HIGHEST if vectors.dtype == jnp.float32 else jax.lax.Precision.DEFAULT
-    )
-    dots = jnp.einsum(
-        "bd,brd->br", q.astype(vectors.dtype), cvecs,
-        preferred_element_type=jnp.float32, precision=precision,
-    )
+    dots = rowwise_dots(q, cvecs)
     if metric == "cosine":
         scores = jnp.minimum(dots / jnp.maximum(cnorms, 1e-12), 1.0)
     elif metric == "dot":
@@ -118,7 +109,6 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         max_rescore: int = 4096,
         search_mode: str = "exact",
         recall_target: float = 0.99,
-        use_pallas: bool = True,
         keep_vectors: bool = True,
         hamming_impl: str = "mxu",
         prescan: str = "asym",
@@ -137,23 +127,16 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         self.threshold = float(threshold)
         self.rescore_ratio = float(rescore_ratio)
         self.max_rescore = int(max_rescore)
-        # Default scan is the MXU sign-bit matmul (ops/hamming.py): the VPU
-        # popcount forms are compute-bound at ~22 ms/128-batch at 1M on
-        # v5e, the MXU form is bandwidth-bound sub-ms. hamming_impl selects
-        # the A/B paths: "mxu" | "popcount" (Pallas kernel on TPU, XLA
-        # broadcast elsewhere — the use_pallas knob) | "xla".
-        if hamming_impl == "popcount":
-            self.hamming_impl = "pallas" if (
-                use_pallas and jax.default_backend() == "tpu") else "xla"
-        else:
-            self.hamming_impl = hamming_impl
+        # Default scan is the sign-bit matmul (ops/hamming.py), which runs
+        # on the matrix units; hamming_impl selects the A/B path: "mxu" |
+        # "popcount" (the XOR + popcount reference, also spelled "xla").
+        self.hamming_impl = ("xla" if hamming_impl == "popcount"
+                             else hamming_impl)
         # prescan="asym" (default): rank stage-1 candidates by
-        # dot(q_unit, sign(x)) — the same MXU matmul as the Hamming scan
-        # but with the real-valued query (ops/hamming.py asym_topk). The
-        # rescore gather is per-ROW bound (bench/binary_profile3.py), so a
-        # better prescan is the only recall lever that doesn't cost QPS:
-        # measured +0.26..+0.33 recall@10 at equal budget on isotropic
-        # corpora (bench/binary_asym_ab.py). prescan="hamming" keeps the
+        # dot(q_unit, sign(x)) — the same matmul as the Hamming scan but
+        # with the real-valued query (ops/hamming.py asym_topk). The rescore
+        # gather is a per-row cost, so a better prescan is the recall lever
+        # that doesn't cost QPS. prescan="hamming" keeps the
         # reference's symmetric ranking (quantization.rs:151-193).
         if prescan not in ("asym", "hamming"):
             raise ValueError(f"prescan must be 'asym' or 'hamming', got {prescan!r}")
@@ -209,10 +192,9 @@ class BinaryDeviceIndex(FlatDeviceIndex):
     # -- search ------------------------------------------------------------------
 
     def _scan_chunk(self) -> int:
-        """Hamming-scan chunking: full-axis selection measured FASTER than
-        16k chunks at k~=1024 on 131k (7.3 vs 10.1 ms end-to-end — chunking
-        pays per-chunk selections plus a merge); cap the single block at
-        256k rows so the MXU decode transient stays bounded."""
+        """Hamming-scan chunking: one full-axis selection instead of
+        per-chunk selections plus a merge; cap the single block at 256k rows
+        so the sign-decode transient stays bounded."""
         return min(self.capacity, 262_144)
 
     def _rescore_count(self, k: int) -> int:
@@ -277,8 +259,8 @@ class BinaryDeviceIndex(FlatDeviceIndex):
         analog of ``IvfDeviceIndex.tune_nprobe`` (the knob the reference's
         multi_stage_search hardcoded, quantization.rs:151-193).
 
-        The rescore gather is per-ROW bound (~38 ns/row, measured in
-        bench/binary_profile3.py), so recall@k is a monotone function of the
+        The rescore gather is a per-row cost, so recall@k is a monotone
+        function of the
         budget and QPS is ~inverse in it — the sweep finds the cheapest
         point on that curve for THIS corpus and query distribution instead
         of shipping ``max_rescore=4096`` everywhere. ``queries`` defaults to

@@ -1,13 +1,13 @@
 """GraphDeviceIndex — the HNSW-equivalent: bulk-built k-NN graph + batched beam.
 
-STATUS: EXPERIMENTAL (r3 decision, measured). A beam hop costs ~1 ms on v5e
-(gather 0.74 + merge 0.20 + dedup 0.06 ms at B=128, ops/graph.py), so graph
-search loses to the flat MXU scan at <=1M rows and to the IVF Pallas probe at
-every scale; the >=10M capacity role is served by ivf_int8 / ivf_int8_proj.
-Kept (tested, maintained) for users porting HNSW-shaped workloads — see
-README "Graph index status".
+STATUS: EXPERIMENTAL. A beam hop is a row gather + merge + dedup and a search
+needs several hops, so graph search is expected to lose to the flat scan at
+<=1M rows and to the IVF probe at larger scales (not measured on the GPU);
+the >=10M capacity role is served by ivf_int8 / ivf_int8_proj. Kept (tested,
+maintained) for users porting HNSW-shaped workloads — see README "Graph index
+status".
 
-Replaces the reference's HNSW index (index.rs:68-310) with the TPU-correct
+Replaces the reference's HNSW index (index.rs:68-310) with the device-shaped
 design from SURVEY.md §7.1 step 3:
 
 - the graph is bulk-built on device (NN-descent, ops/graph.py) — no per-insert
@@ -38,7 +38,6 @@ import numpy as np
 from grape_vector_db_tpu.errors import DimensionMismatchError
 from grape_vector_db_tpu.index.base import IndexStats, SearchHit, VectorIndex
 from grape_vector_db_tpu.index.flat import FlatDeviceIndex
-from grape_vector_db_tpu.ops.gather_pallas import pallas_gather_supported
 from grape_vector_db_tpu.ops.graph import beam_search, build_knn_graph
 from grape_vector_db_tpu.ops.kmeans import kmeans
 from grape_vector_db_tpu.utils.buckets import next_bucket, pad_rows
@@ -85,21 +84,10 @@ class GraphDeviceIndex(VectorIndex):
         rebuild_ratio: float = 0.25,
         search_mode: str = "exact",
         recall_target: float = 0.99,
-        use_pallas: bool = True,
         device: Optional[jax.Device] = None,
     ):
         self._dim = dimension
         self.metric = metric
-        # Candidate-gather engine for the beam. The DMA kernel is currently
-        # disproven on hardware (see ops/gather_pallas.py docstring for the
-        # measurements); pallas_gather_supported gates it off, so this
-        # resolves to the XLA gather until a Mosaic release lifts the
-        # sublane-alignment constraint on DMA slices.
-        self.gather_impl = "pallas" if (
-            use_pallas
-            and jax.default_backend() == "tpu"
-            and pallas_gather_supported(dimension, jnp.dtype(storage_dtype))
-        ) else "xla"
         self.m = m
         # Layer-0 degree is 2*m, matching HNSW's max_m0 convention — the extra
         # edges are what lets NN-descent converge to ~0.99 graph recall.
@@ -208,8 +196,8 @@ class GraphDeviceIndex(VectorIndex):
             nn_sample=min(self.degree, 8), metric=self.metric,
         )
         self.neighbors = jnp.asarray(nb, dtype=jnp.int32)
-        # Entry points: a bare kNN graph is not navigable from static entries
-        # at scale (measured recall 0.06 at 100k from 64 fixed entries), so
+        # Entry points: a bare kNN graph is not navigable from a few static
+        # entries at scale (recall collapses at ~100k rows), so
         # search probes k-means centroids per query and enters the graph at
         # each probed centroid's nearest live point.
         live = [s for s in range(self._graph_n) if gs._slot_to_id[s] is not None]
@@ -279,7 +267,6 @@ class GraphDeviceIndex(VectorIndex):
                 # (history-based dedup is approximate); the host merge dedupes
                 k=min(2 * k, self.pool), pool=self.pool, expand=self.expand,
                 iters=self.search_iters, metric=self.metric,
-                impl=self.gather_impl,
             )
             h_vals, h_idxs = fetch_scores_slots(vals, idxs)
             graph_hits = gs.hits_from_slots(h_vals[:b], h_idxs[:b])

@@ -2,9 +2,9 @@
 
 The next rung of the bandwidth/capacity ladder above `index/ivf_int8.py`:
 packed nibbles store 0.5 byte/dim (384 B/row at D=768 — a QUARTER of bf16,
-half of int8), so the DMA-bound Pallas probe (ops/ivf_pallas.py) streams
-probed lists ~2x faster than the int8 probe and the chip holds ~2x more
-rows than the int8 capacity config (~4x bf16).
+half of int8), so the probe (ops/ivf_pallas.py on a GPU) reads half the
+int8 probe's bytes per list and a device holds ~2x more rows than the int8
+capacity config (~4x bf16).
 
 Two configurations (mirroring ivf_int8):
 
@@ -18,7 +18,7 @@ Two configurations (mirroring ivf_int8):
 
 Packing is split-plane (ops/int4.py): byte j of a row holds dim j (low
 nibble) and dim j + D/2 (high nibble), so the kernel unpacks with two
-elementwise ops and never needs the lane interleave Mosaic cannot lower.
+elementwise ops and dots each half against the matching query half.
 
 Reference parity: extends FaissIndexType::IvfFlat with a quantized tier the
 reference never had (its IVF linear-scanned anyway, index.rs:620-640).
@@ -31,12 +31,11 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
 
 from grape_vector_db_tpu.index.ivf_int8 import Int8IvfDeviceIndex
-from grape_vector_db_tpu.ops.distance import prepare_queries
+from grape_vector_db_tpu.ops.distance import prepare_queries, rowwise_dots
 from grape_vector_db_tpu.ops.int4 import quantize_int4, unpack_int4
-from grape_vector_db_tpu.ops.ivf_pallas import finalize_probe_topk
+from grape_vector_db_tpu.ops.ivf_probe import finalize_probe_topk, probe_lists
 
 __all__ = ["Int4IvfDeviceIndex"]
 
@@ -55,8 +54,7 @@ def _int4_cell_scatter(codes, scales, factor, lists, pos, new_vecs, new_norms,
         f = s / jnp.maximum(new_norms, 1e-12)
     else:
         f = s
-    factor = factor.at[lists, :, pos].set(
-        jnp.broadcast_to(f[:, None], (f.shape[0], 8)), mode="drop")
+    factor = factor.at[lists, pos].set(f, mode="drop")
     return codes, scales, factor
 
 
@@ -66,7 +64,7 @@ def _ivf_int4_topk(
     queries,     # [B, D] f32 raw
     centroids,   # [L, D] f32
     codes,       # [L, C, D/2] int8 packed nibbles
-    factor,      # [L, 8, C] f32 masked scale/norm (0 = invalid)
+    factor,      # [L, C] f32 masked scale/norm (0 = invalid)
     vecs,        # [L, C, D] bf16 shadow or None (capacity config)
     norms,       # [L, C] f32 (rescore) or None
     cell_mask,   # [L, C] bool or None
@@ -75,27 +73,21 @@ def _ivf_int4_topk(
     metric: str,
     rescore: int,
 ):
-    """XLA fallback probe (CPU tests / non-TPU backends): same contract as
-    ops/ivf_pallas.pallas_ivf_topk_int4."""
-    b, d = queries.shape
-    l, c, _ = codes.shape
+    """XLA probe: same contract as ops/ivf_pallas.kernel_ivf_topk with
+    fmt="int4"."""
     q = prepare_queries(queries, metric)
+    probe = probe_lists(q, centroids, nprobe, metric)           # [B, P]
 
-    cq = lax.dot_general(q, centroids, (((1,), (1,)), ((), ())),
-                         preferred_element_type=jnp.float32)
-    _, probe = lax.top_k(cq, min(nprobe, l))                    # [B, P]
-
-    cand = unpack_int4(codes[probe]).astype(jnp.bfloat16)       # [B, P, C, D]
-    f = factor[probe, 0]                                        # [B, P, C]
-    dots = jnp.einsum("bd,bpcd->bpc", q.astype(jnp.bfloat16), cand,
-                      preferred_element_type=jnp.float32)
+    f = factor[probe]                                           # [B, P, C]
+    dots = rowwise_dots(q, unpack_int4(codes[probe]),
+                        q_dtype=jnp.bfloat16)                   # [B, P, C]
     scores = dots * f + jnp.where(f == 0.0, -1e9, 0.0)
 
     def weight(rl, rp):
         # norms are NOT zeroed on delete; fold current validity explicitly
         # so the rescore guard (w > 0) drops cells deleted since scatter.
         cn = norms[rl, rp]
-        live = factor[rl, 0, rp] > 0
+        live = factor[rl, rp] > 0
         if metric == "cosine":
             w = 1.0 / jnp.maximum(cn, 1e-12)
         else:
@@ -111,8 +103,8 @@ def _ivf_int4_topk(
 
 class Int4IvfDeviceIndex(Int8IvfDeviceIndex):
     kind = "ivf_int4"
-    # the kernel DMAs [C, D/2] packed blocks: D/2 must stay 128-lane-aligned
-    _pallas_dim_align = 256
+    codes_fmt = "int4"
+    _xla_topk = staticmethod(_ivf_int4_topk)
 
     # -- storage seams --------------------------------------------------------
 
@@ -144,36 +136,12 @@ class Int4IvfDeviceIndex(Int8IvfDeviceIndex):
 
     # -- search ----------------------------------------------------------------
 
-    def _scan_planes(self):
-        return self.codes, self.factor, "int4"
-
-    def _main_topk(self, qp: np.ndarray, k: int, mask, nprobe=None):
-        nprobe = min(nprobe or self.nprobe, self.nlist)
-        cm = None if mask is None else jnp.asarray(mask[0])
-        r = self._rescore_count(k)
-        if self._use_pallas:
-            from grape_vector_db_tpu.ops.ivf_pallas import pallas_ivf_topk_int4
-
-            return pallas_ivf_topk_int4(
-                jnp.asarray(qp), self.centroids, self.codes, self.factor,
-                k=k, nprobe=nprobe, metric=self.metric, rescore=r,
-                vecs=self.vecs if r else None,
-                recip=self.recip if r else None,
-                interpret=self._pallas_interpret, cell_mask=cm,
-                nblocks=self._pallas_nblocks(),
-            )
-        return _ivf_int4_topk(
-            jnp.asarray(qp), self.centroids, self.codes, self.factor,
-            self.vecs if r else None, self.norms if r else None, cm,
-            k=k, nprobe=nprobe, metric=self.metric, rescore=r,
-        )
-
     # -- introspection -----------------------------------------------------------
 
     def get_stats(self):
         stats = super().get_stats()
         stats.kind = self.kind
-        per_row = self._dim // 2 + 4 * 2 + 8 * 4  # packed + scale/norm + factor
+        per_row = self._dim // 2 + 4 * 3  # packed + scale/norm + factor
         if self.keep_bf16:
             per_row += self.storage_dtype.itemsize * self._dim
         stats.memory_usage_mb = self.nlist * self.list_cap * per_row / 1e6

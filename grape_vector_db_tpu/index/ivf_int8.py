@@ -1,10 +1,9 @@
 """Int8IvfDeviceIndex — IVF partitioning over int8-resident lists.
 
-The bandwidth AND capacity play combined, built for the TPU memory system:
-the Pallas DMA probe (ops/ivf_pallas.py) streams each probed list as one
-contiguous block, and int8 codes halve the bytes per list vs bf16 — so the
-probe runs ~2x faster at the streaming roofline AND the corpus fits ~2x more
-rows per chip (768 B/row at D=768 vs 1536 B bf16).
+The bandwidth AND capacity play combined: the probe reads each probed list
+in place (ops/ivf_pallas.py on a GPU), and int8 codes halve the bytes per
+list vs bf16 — the probe moves half the bytes AND the corpus fits ~2x more
+rows per device (768 B/row at D=768 vs 1536 B bf16).
 
 Two configurations (config.index.ivf_int8_keep_bf16):
 
@@ -32,12 +31,11 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
 
 from grape_vector_db_tpu.index.ivf import IvfDeviceIndex
-from grape_vector_db_tpu.ops.distance import prepare_queries
+from grape_vector_db_tpu.ops.distance import prepare_queries, rowwise_dots
 from grape_vector_db_tpu.ops.int8 import quantize_int8
-from grape_vector_db_tpu.ops.ivf_pallas import finalize_probe_topk
+from grape_vector_db_tpu.ops.ivf_probe import finalize_probe_topk, probe_lists
 from grape_vector_db_tpu.utils.buckets import next_bucket
 
 __all__ = ["Int8IvfDeviceIndex"]
@@ -56,8 +54,7 @@ def _int8_cell_scatter(codes, scales, factor, lists, pos, new_vecs, new_norms,
         f = s / jnp.maximum(new_norms, 1e-12)
     else:
         f = s
-    factor = factor.at[lists, :, pos].set(
-        jnp.broadcast_to(f[:, None], (f.shape[0], 8)), mode="drop")
+    factor = factor.at[lists, pos].set(f, mode="drop")
     return codes, scales, factor
 
 
@@ -70,7 +67,7 @@ def _nv_scatter(norms, valid, lists, pos, new_norms):
 
 @functools.partial(jax.jit, donate_argnums=(0,))
 def _factor_invalidate(factor, lists, pos):
-    return factor.at[lists, :, pos].set(0.0, mode="drop")
+    return factor.at[lists, pos].set(0.0, mode="drop")
 
 
 @functools.partial(jax.jit, static_argnames=("k", "nprobe", "metric",
@@ -79,7 +76,7 @@ def _ivf_int8_topk(
     queries,     # [B, D] f32 raw
     centroids,   # [L, D] f32
     codes,       # [L, C, D] int8
-    factor,      # [L, 8, C] f32 masked scale/norm (0 = invalid)
+    factor,      # [L, C] f32 masked scale/norm (0 = invalid)
     vecs,        # [L, C, D] bf16 shadow or None (capacity config)
     norms,       # [L, C] f32 (rescore) or None
     cell_mask,   # [L, C] bool or None
@@ -88,27 +85,20 @@ def _ivf_int8_topk(
     metric: str,
     rescore: int,
 ):
-    """XLA fallback probe (CPU tests / non-TPU backends): same contract as
-    ops/ivf_pallas.pallas_ivf_topk_int8."""
-    b, d = queries.shape
-    l, c, _ = codes.shape
+    """XLA probe: same contract as ops/ivf_pallas.kernel_ivf_topk with
+    fmt="int8"."""
     q = prepare_queries(queries, metric)
+    probe = probe_lists(q, centroids, nprobe, metric)           # [B, P]
 
-    cq = lax.dot_general(q, centroids, (((1,), (1,)), ((), ())),
-                         preferred_element_type=jnp.float32)
-    _, probe = lax.top_k(cq, min(nprobe, l))                    # [B, P]
-
-    cand = codes[probe].astype(jnp.bfloat16)                    # [B, P, C, D]
-    f = factor[probe, 0]                                        # [B, P, C]
-    dots = jnp.einsum("bd,bpcd->bpc", q.astype(jnp.bfloat16), cand,
-                      preferred_element_type=jnp.float32)
+    f = factor[probe]                                           # [B, P, C]
+    dots = rowwise_dots(q, codes[probe])                        # [B, P, C]
     scores = dots * f + jnp.where(f == 0.0, -1e9, 0.0)
 
     def weight(rl, rp):
         # norms are NOT zeroed on delete; fold current validity explicitly
         # so the rescore guard (w > 0) drops cells deleted since scatter.
         cn = norms[rl, rp]
-        live = factor[rl, 0, rp] > 0
+        live = factor[rl, rp] > 0
         if metric == "cosine":
             w = 1.0 / jnp.maximum(cn, 1e-12)
         else:
@@ -124,6 +114,8 @@ def _ivf_int8_topk(
 
 class Int8IvfDeviceIndex(IvfDeviceIndex):
     kind = "ivf_int8"
+    codes_fmt = "int8"   # the probe kernel's code format
+    _xla_topk = staticmethod(_ivf_int8_topk)
 
     def __init__(self, *args, rescore: int = 64, keep_bf16: bool = True,
                  **kwargs):
@@ -146,7 +138,7 @@ class Int8IvfDeviceIndex(IvfDeviceIndex):
             self.recip = None
         self._alloc_codes(cap)
         self.scales = jnp.zeros((l, cap), dtype=jnp.float32)
-        self.factor = jnp.zeros((l, 8, cap), dtype=jnp.float32)
+        self.factor = jnp.zeros((l, cap), dtype=jnp.float32)
 
     def _alloc_codes(self, cap: int) -> None:
         self.codes = jnp.zeros((self.nlist, cap, self._dim), dtype=jnp.int8)
@@ -188,24 +180,23 @@ class Int8IvfDeviceIndex(IvfDeviceIndex):
         return next_bucket(max(self.rescore, k), base=64)
 
     def _scan_planes(self):
-        return self.codes, self.factor, "int8"
+        return self.codes, self.factor, self.codes_fmt
 
     def _main_topk(self, qp: np.ndarray, k: int, mask, nprobe=None):
         nprobe = min(nprobe or self.nprobe, self.nlist)
         cm = None if mask is None else jnp.asarray(mask[0])
         r = self._rescore_count(k)
-        if self._use_pallas:
-            from grape_vector_db_tpu.ops.ivf_pallas import pallas_ivf_topk_int8
+        if self._use_kernel:
+            from grape_vector_db_tpu.ops.ivf_pallas import kernel_ivf_topk
 
-            return pallas_ivf_topk_int8(
+            return kernel_ivf_topk(
                 jnp.asarray(qp), self.centroids, self.codes, self.factor,
-                k=k, nprobe=nprobe, metric=self.metric, rescore=r,
-                vecs=self.vecs if r else None,
+                k=k, nprobe=nprobe, metric=self.metric, fmt=self.codes_fmt,
+                rescore=r, vecs=self.vecs if r else None,
                 recip=self.recip if r else None,
-                interpret=self._pallas_interpret, cell_mask=cm,
-                nblocks=self._pallas_nblocks(),
+                fill=self._list_fill(), cell_mask=cm,
             )
-        return _ivf_int8_topk(
+        return self._xla_topk(
             jnp.asarray(qp), self.centroids, self.codes, self.factor,
             self.vecs if r else None, self.norms if r else None, cm,
             k=k, nprobe=nprobe, metric=self.metric, rescore=r,
@@ -216,7 +207,7 @@ class Int8IvfDeviceIndex(IvfDeviceIndex):
     def get_stats(self):
         stats = super().get_stats()
         stats.kind = self.kind
-        per_row = self._dim + 4 * 2 + 8 * 4  # codes + scale/norm + factor
+        per_row = self._dim + 4 * 3  # codes + scale/norm + factor
         if self.keep_bf16:
             per_row += self.storage_dtype.itemsize * self._dim
         stats.memory_usage_mb = self.nlist * self.list_cap * per_row / 1e6

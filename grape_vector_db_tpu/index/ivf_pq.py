@@ -35,7 +35,7 @@ from jax import lax
 from grape_vector_db_tpu.index.base import SearchHit
 from grape_vector_db_tpu.index.ivf import IvfDeviceIndex
 from grape_vector_db_tpu.index.ivf_int8 import _nv_scatter
-from grape_vector_db_tpu.ops.distance import prepare_queries
+from grape_vector_db_tpu.ops.distance import prepare_queries, rowwise_dots
 from grape_vector_db_tpu.ops.int8 import quantize_int8
 from grape_vector_db_tpu.ops.pq import encode_pq, train_pq
 from grape_vector_db_tpu.utils.buckets import next_bucket, pad_rows
@@ -131,7 +131,7 @@ def _ivfpq_topk(
     if rescore_k <= 0 or rvecs is None:
         # ADC-only capacity config: ranking IS the ADC scores. Selection via
         # the fast exact engines (ops/distance._select_topk) — lax.top_k over
-        # the long nprobe*cap axis is the documented 25-ms TPU pathology.
+        # the long nprobe*cap axis costs many times the iterative engine.
         from grape_vector_db_tpu.ops.distance import _select_topk
 
         kk = min(k, p * c)
@@ -155,19 +155,9 @@ def _ivfpq_topk(
     pos = cand_slot % c
     rrows = rvecs[lst, pos]                                   # [B, rk, D]
     rnorms = norms[lst, pos]
+    rdots = rowwise_dots(q, rrows)
     if rvecs.dtype == jnp.int8:
-        rdots = jnp.einsum("bd,brd->br", q.astype(jnp.bfloat16),
-                           rrows.astype(jnp.bfloat16),
-                           preferred_element_type=jnp.float32)
         rdots = rdots * rscales[lst, pos]
-    else:
-        precision = (
-            lax.Precision.HIGHEST if rvecs.dtype == jnp.float32
-            else lax.Precision.DEFAULT
-        )
-        rdots = jnp.einsum("bd,brd->br", q.astype(rvecs.dtype), rrows,
-                           preferred_element_type=jnp.float32,
-                           precision=precision)
     if metric == "cosine":
         rscores = jnp.minimum(rdots / jnp.maximum(rnorms, 1e-12), 1.0)
     elif metric == "dot":
@@ -201,12 +191,6 @@ class IvfPqDeviceIndex(IvfDeviceIndex):
         self.residual = bool(residual)
         self.resident = resident
         self.codebooks: Optional[jax.Array] = None
-        # The trained search path is the fused ADC scan (_ivfpq_topk), which
-        # never touches the parent's Pallas DMA probe — inheriting
-        # use_pallas=True would allocate and scatter-maintain the [L, 8, cap]
-        # recip plane (32 bytes/cell of HBM) for a kernel this index never
-        # runs.
-        kwargs.setdefault("use_pallas", False)
         super().__init__(*args, **kwargs)
         self.n_sub = n_sub if n_sub is not None else max(1, self._dim // 8)
         if self._dim % self.n_sub:

@@ -1,24 +1,22 @@
-"""ProjectedInt8IvfIndex — PCA-projected int8 IVF: the MXU-native capacity
-tier beyond int8's 768 B/row.
+"""ProjectedInt8IvfIndex — PCA-projected int8 IVF: the matmul-friendly
+capacity tier beyond int8's 768 B/row.
 
 Why not PQ for this: the classic LUT/ADC scan is a per-candidate table
-*gather*, which TPUs have no fast path for — measured end-to-end on v5e at
-1M x 768 the XLA ADC probe runs ~330 QPS while the int8 Pallas DMA probe runs
-10^5-10^6 (bench/SWEEP_PQ.jsonl). The TPU way to shrink bytes/row further is
-to shrink the *dimension*, not the per-dim code: project rows onto the
+*gather*, while a projected int8 probe stays a dense dot per row. The way to
+shrink bytes/row further is to shrink the *dimension*, not the per-dim code:
+project rows onto the
 corpus's top-R principal directions (uncentered PCA — preserves dot/cosine
 structure) and run the whole int8 engine at dim R. Everything downstream —
-spherical k-means, the ragged block-DMA Pallas probe, int8 quantization,
-masked search — is inherited unchanged at R lanes; queries pay one [D, R]
+spherical k-means, the probe kernel, int8 quantization,
+masked search — is inherited unchanged at dimension R; queries pay one [D, R]
 matmul.
 
 At R=384: ~424 B/row resident (codes + scales + factor + norms), i.e. ~2x the
-rows/chip of the 768-d int8 engine — the >16M rows/chip configuration
-(VERDICT r2 item 2) with the same probe kernels.
+rows/device of the 768-d int8 engine, with the same probe kernel.
 
 Reference parity: this plays the capacity role of FaissIndexType::IvfPq
 (index.rs:313-327) whose trained PQ the reference never searched with; the
-projection is the OPQ-style rotation done the MXU-friendly way.
+projection is the OPQ-style rotation done the matmul-friendly way.
 """
 
 from __future__ import annotations
@@ -46,10 +44,9 @@ def _fit_projection(sample: jax.Array, r: int) -> Tuple[jax.Array, jax.Array]:
     Uncentered (no mean subtraction) so that dot products — and therefore
     cosine ranking — are preserved on the retained subspace: for P spanning
     the top eigenspace, x.y ~= (P^T x).(P^T y). The energy fraction is the
-    build-time tier-choice signal: measured end-to-end, energy@384 = 0.82 on
-    text-like embeddings gave proj recall 0.69-0.81 and the loss is NOT
-    host-rescore-recoverable (bench/proj_text_ab.py) — flat-spectrum corpora
-    should use full-dim int4 at equal bytes instead.
+    build-time tier-choice signal: what the projection drops is lost before
+    any rescore sees it, so flat-spectrum corpora (low energy) should use
+    full-dim int4 at equal bytes instead.
     """
     cov = jax.lax.dot_general(sample, sample, (((0,), (0,)), ((), ())),
                               preferred_element_type=jnp.float32)
@@ -62,9 +59,8 @@ def _fit_projection(sample: jax.Array, r: int) -> Tuple[jax.Array, jax.Array]:
 class ProjectedInt8IvfIndex(Int8IvfDeviceIndex):
     kind = "ivf_int8_proj"
 
-    # Below this retained-energy fraction the projection measurably loses
-    # unrecoverable recall (energy@384=0.82 -> 0.69-0.81 e2e on text-like
-    # embeddings, bench/proj_text_ab.py) — warn and point at full-dim int4.
+    # Below this retained-energy fraction the projection loses recall that
+    # no rescore recovers — warn and point at full-dim int4.
     ENERGY_WARN = 0.9
 
     def __init__(self, dimension: int, proj_dim: int = 384,
@@ -74,7 +70,8 @@ class ProjectedInt8IvfIndex(Int8IvfDeviceIndex):
                 f"proj_dim {proj_dim} must be < dimension {dimension}")
         if proj_dim % 128:
             raise ValueError(
-                f"proj_dim {proj_dim} must be 128-aligned (Pallas DMA lanes)")
+                f"proj_dim {proj_dim} must be 128-aligned (the probe "
+                f"kernel's power-of-two column tiles)")
         self.full_dim = dimension
         self.proj_dim = proj_dim
         self.min_energy = min_energy              # refuse-to-build floor
@@ -112,8 +109,8 @@ class ProjectedInt8IvfIndex(Int8IvfDeviceIndex):
             warnings.warn(
                 f"{self.kind}: flat-spectrum corpus — the {self.proj_dim}-d "
                 f"projection retains only {energy:.3f} of spectral energy "
-                f"(< {self.ENERGY_WARN}); expect unrecoverable recall loss "
-                f"(~0.7-0.8 end-to-end measured at 0.82 energy). Prefer "
+                f"(< {self.ENERGY_WARN}); expect unrecoverable recall "
+                f"loss. Prefer "
                 f"full-dim kind='ivf_int4' at equal bytes/row, or raise "
                 f"proj_dim.",
                 RuntimeWarning, stacklevel=3)
@@ -234,9 +231,8 @@ class ProjectedInt4IvfIndex(ProjectedInt8IvfIndex, Int4IvfDeviceIndex):
     capacity tier (R=384 -> 192 B codes + 40 B planes per row; ~4x the
     768-d int8 row ceiling). MRO routes the projection wrapper's super()
     calls into Int4IvfDeviceIndex, so everything downstream — split-plane
-    packing, the int4 ragged-DMA probe, masked search — runs unchanged at
-    R lanes. The Pallas probe needs R % 256 == 0 (packed width lane
-    alignment); other 128-aligned R values take the XLA probe."""
+    packing, the int4 probe kernel, masked search — runs unchanged at
+    dimension R."""
 
     kind = "ivf_int4_proj"
 
@@ -251,7 +247,7 @@ def _make_sharded_projected():
                                        ShardedInt8IvfIndex):
         """Mesh-sharded PCA-projected int8 IVF — the capacity tier times the
         mesh: each device holds 1/S of every list's R-dim int8 codes, so a
-        shard-axis of S carries S x ~16.9M rows at the measured single-chip
+        shard-axis of S carries S times the single-device rows at the same
         recall. MRO: projection wrappers (this file) over the sharded
         within-list layout (parallel/mesh.py) over the int8 planes."""
 

@@ -2,7 +2,7 @@
 
 This package replaces the reference's per-point CPU hot loops
 (index.rs HNSW walk, quantization.rs Hamming scan, sparse.rs BM25 accumulation)
-with batched, MXU/VPU-friendly kernels over HBM-resident arrays.
+with batched kernels over device-resident arrays.
 """
 
 from grape_vector_db_tpu.ops.distance import (

@@ -1,20 +1,18 @@
-"""Batched distance scoring + top-k over HBM-resident vector shards.
+"""Batched distance scoring + top-k over device-resident vector shards.
 
-TPU-native replacement for the reference's per-point distance loops:
+Replacement for the reference's per-point distance loops:
 - HNSW graph walk with per-hop f32 L2 distances (reference index.rs:68-79, 212-231)
 - full-scan cosine search (reference storage.rs:296-339, index.rs:620-640)
 
 Design: the corpus lives as a fixed-capacity ``[capacity, dim]`` array (bf16 by
 default) plus a precomputed f32 norm vector and a validity mask. A query batch
-``[B, dim]`` is scored in one MXU matmul (f32 accumulation) and selected with
+``[B, dim]`` is scored in one matmul (f32 accumulation) and selected with
 one of two top-k engines:
 
-- ``mode="exact"``: iterative max-and-mask — k passes of (argmax, mask). On TPU
-  this is ~30x faster than ``lax.top_k`` over a long axis (measured on v5e:
-  0.86ms vs 25ms for k=10 over [128, 131072]) and exact.
-- ``mode="approx"``: ``lax.approx_max_k`` (TPU-native partial reduction,
-  recall_target configurable, default 0.99) — runs at HBM roofline (0.33ms on
-  the same shape).
+- ``mode="exact"``: iterative max-and-mask — k passes of (argmax, mask),
+  exact; or, on long axes, a verified approximate selection (exact too).
+- ``mode="approx"``: ``lax.approx_max_k`` (partial reduction,
+  recall_target configurable, default 0.99).
 
 For corpora whose [B, N] score matrix would exceed ``max_score_elems`` the scan
 falls back to a chunked ``lax.scan`` that never materializes all scores.
@@ -34,7 +32,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-__all__ = ["l2_normalize", "prepare_queries", "score_block", "scored_topk"]
+__all__ = ["l2_normalize", "prepare_queries", "score_block", "scored_topk",
+           "rowwise_dots", "exact_engine", "score_weights"]
 
 NEG_INF = jnp.float32(-jnp.inf)
 
@@ -57,6 +56,38 @@ def prepare_queries(queries: jax.Array, metric: str) -> jax.Array:
     return q
 
 
+def rowwise_dots(q: jax.Array, rows: jax.Array, q_dtype=None) -> jax.Array:
+    """Each query against its own rows: [B, D] x [B, ..., D] -> [B, ...] f32.
+
+    The query is rounded to ``q_dtype`` — by default the rows' float type,
+    bf16 for integer codes, as the kernels do — with ``lax.reduce_precision``:
+    XLA on a GPU treats an f32 -> bf16 -> f32 convert pair as excess
+    precision and drops it (``xla_allow_excess_precision``), which left the
+    query unrounded and moved scores by up to 2.3e-4 at D = 768 against a
+    reference that rounds. Products and sums are then f32 (``HIGHEST``: no
+    TF32), exact for bf16 values and integer codes."""
+    if q_dtype is None:
+        q_dtype = (rows.dtype if jnp.issubdtype(rows.dtype, jnp.floating)
+                   else jnp.bfloat16)
+    qf = q.astype(jnp.float32)
+    if jnp.dtype(q_dtype) == jnp.bfloat16:
+        qf = lax.reduce_precision(qf, exponent_bits=8, mantissa_bits=7)
+    return jnp.einsum("bd,b...d->b...", qf, rows.astype(jnp.float32),
+                      precision=lax.Precision.HIGHEST)
+
+
+def score_weights(norms: jax.Array, valid: jax.Array,
+                  metric: str = "cosine") -> jax.Array:
+    """Validity-masked score weights of any shape: 1/|v| for cosine (the
+    norm division as one multiply), 1.0 for dot; 0 marks an invalid row.
+    The kernels and the masked scans multiply dots by this plane."""
+    if metric == "cosine":
+        w = jnp.where(valid, 1.0 / jnp.maximum(norms, 1e-12), 0.0)
+    else:
+        w = jnp.where(valid, 1.0, 0.0)
+    return w.astype(jnp.float32)
+
+
 def score_block(
     q: jax.Array,          # [B, D] f32 (already prepare_queries'd)
     vecs: jax.Array,       # [C, D] storage dtype
@@ -65,7 +96,7 @@ def score_block(
     metric: str,
 ) -> jax.Array:
     """Score one corpus block: returns [B, C] f32, -inf where invalid."""
-    # MXU matmul with f32 accumulation. bf16 storage keeps HBM traffic at
+    # Matmul with f32 accumulation. bf16 storage keeps HBM traffic at
     # 2 bytes/element; accumulate in f32 for exactness of the ranking. With f32
     # storage, request HIGHEST precision so XLA does not demote inputs to bf16.
     precision = lax.Precision.HIGHEST if vecs.dtype == jnp.float32 else lax.Precision.DEFAULT
@@ -91,8 +122,9 @@ def score_block(
 
 
 def _iterative_topk(scores: jax.Array, k: int) -> Tuple[jax.Array, jax.Array]:
-    """Exact top-k via k passes of (argmax, mask). Beats lax.top_k by ~30x on
-    long axes for small k; exact because each pass removes the found maximum."""
+    """Exact top-k via k passes of (argmax, mask): k streaming passes
+    instead of a sort-based top-k over a long axis, for small k; exact
+    because each pass removes the found maximum."""
     b = scores.shape[0]
     rows = jnp.arange(b)
 
@@ -114,14 +146,14 @@ def _verified_exact_topk(scores: jax.Array, k: int) -> Tuple[jax.Array, jax.Arra
     value, if the full matrix and the candidate set contain the same number of
     entries > tau, every entry above tau is a candidate, so the candidate
     top-k is the true top-k (boundary ties are interchangeable by value).
-    On the rare failure, fall back to the iterative exact scan. Measured ~7x
-    faster than iterative max-and-mask at 1M rows.
+    On the rare failure, fall back to the iterative exact scan (one
+    approximate pass and one count instead of k passes).
     """
     n = scores.shape[1]
     # Large over-fetch: approx_max_k's misses concentrate near its own
     # boundary (rank ~over), so with over >> k the true top-k is essentially
-    # always captured and the proof passes; a small over-fetch fell back to
-    # the slow path ~40% of the time.
+    # always captured and the proof passes; a small over-fetch falls back
+    # to the slow path often.
     over = min(max(16 * k, 1024), n)
     avals, aidx = lax.approx_max_k(scores, over, recall_target=0.95)
     kvals, kpos = lax.top_k(avals, k)
@@ -140,6 +172,21 @@ def _verified_exact_topk(scores: jax.Array, k: int) -> Tuple[jax.Array, jax.Arra
 
 
 SEGMENT = 32  # segment width for the two-phase exact engine
+
+
+def _dup_pick_mask(seg: jax.Array) -> jax.Array:
+    """[B, r] bool: True where this segment id already appeared at an
+    EARLIER position in the same row. The iterative selection's tail picks
+    index 0 repeatedly once a plane is all -inf (fewer finite segments than
+    picks — e.g. a large-capacity bucket holding few valid docs), and the
+    -inf masking is then a no-op; without this mask the duplicated
+    segment's rows would be rescored to the same FINITE values twice and
+    lax.top_k could emit one row id twice, displacing a true top-k row."""
+    r = seg.shape[1]
+    return jnp.any(
+        (seg[:, :, None] == seg[:, None, :])
+        & (jnp.arange(r)[None, None, :] < jnp.arange(r)[None, :, None]),
+        axis=2)
 
 
 def _segmax_exact_topk(
@@ -194,13 +241,7 @@ def _segmax_exact_topk(
     rows = (seg_ids[:, :, None] * SEGMENT
             + jnp.arange(SEGMENT, dtype=jnp.int32)[None, None, :]
             ).reshape(b, kk * SEGMENT)                        # [B, kk*32]
-    cvecs = vectors[rows]                                     # [B, C, D]
-    precision = (
-        lax.Precision.HIGHEST if vectors.dtype == jnp.float32
-        else lax.Precision.DEFAULT
-    )
-    dots = jnp.einsum("bd,bcd->bc", q.astype(vectors.dtype), cvecs,
-                      preferred_element_type=jnp.float32, precision=precision)
+    dots = rowwise_dots(q, vectors[rows])                     # [B, C]
     cnorms = norms[rows]
     if metric == "cosine":
         rs = jnp.minimum(dots / jnp.maximum(cnorms, 1e-12), 1.0)
@@ -214,7 +255,6 @@ def _segmax_exact_topk(
     # than kk — a large-capacity bucket holding few valid docs) would
     # rescore the same rows to equal finite values twice and top_k could
     # emit one row id twice, displacing a true top-k row
-    from grape_vector_db_tpu.ops.segmax_pallas import _dup_pick_mask
     rs = jnp.where(jnp.repeat(_dup_pick_mask(seg_ids), SEGMENT, axis=1),
                    NEG_INF, rs)
     fvals, fpos = lax.top_k(rs, min(k, rs.shape[1]))
@@ -230,12 +270,42 @@ def _select_topk(scores: jax.Array, k: int, mode: str,
     if k <= 64:
         # Both engines are exact; cost scales differently: iterative is k full
         # passes (wins on short axes), verified-approx is ~2.3 passes (wins on
-        # long axes). Measured crossover between 131k and 1M rows on v5e.
+        # long axes). The 262,144 crossover is an unmeasured default on GPUs.
         if scores.shape[1] <= 262_144:
             return _iterative_topk(scores, k)
         return _verified_exact_topk(scores, k)
     vals, idxs = lax.top_k(scores, k)
     return vals, idxs.astype(jnp.int32)
+
+
+def exact_engine(n: int, d: int, b: int, k: int, dtype, metric: str,
+                 mode: str = "exact", chunk: int = 65536,
+                 platform: str | None = None) -> str:
+    """Which engine ``scored_topk`` runs for these shapes:
+
+    - ``"segmax_kernel"``: the fused segment-max kernel (ops/segmax_pallas.py),
+      on a GPU only;
+    - ``"segmax_xla"``: the same two-phase algorithm as an XLA scan;
+    - ``"dense"``: one matmul over the whole [B, N] score matrix;
+    - ``"chunked"``: a chunked scan with a per-chunk top-k.
+
+    The row thresholds (262,144 and 131,072) are unmeasured defaults on GPUs.
+    """
+    from grape_vector_db_tpu.ops.segmax_pallas import segmax_kernel_fits
+
+    platform = platform or jax.default_backend()
+    kk = min(k, n)
+    big_n = n > 262_144
+    if mode == "exact" and kk <= 64 and n % SEGMENT == 0:
+        if (platform == "gpu" and metric in ("cosine", "dot")
+                and segmax_kernel_fits(n, d, dtype)
+                and (big_n or (n >= 131_072 and b > 128))):
+            return "segmax_kernel"
+        if big_n and (n <= chunk or n % chunk == 0):
+            return "segmax_xla"
+    if b * n <= MAX_SCORE_ELEMS:
+        return "dense"
+    return "chunked"
 
 
 @functools.partial(
@@ -267,76 +337,25 @@ def scored_topk(
     """
     n, d = vectors.shape
     b = queries.shape[0]
+    kk = min(k, n)
+    engine = exact_engine(n, d, b, k, vectors.dtype, metric, mode, chunk)
+    if engine == "segmax_kernel":
+        # The [B, chunk] score blocks stay in registers; only the 32x
+        # smaller segment maxima reach device memory.
+        from grape_vector_db_tpu.ops.segmax_pallas import segmax_topk
+
+        vals, idxs = segmax_topk(queries, vectors, norms, valid, k=kk,
+                                 metric=metric, mask=mask)
+        return _pad_k(vals, idxs, k)
     if mask is not None:
         valid = jnp.logical_and(valid, mask)
     q = prepare_queries(queries, metric)
-    kk = min(k, n)
-
-    # Large-corpus exact engine: segment-max two-phase (see _segmax_exact_topk)
-    # — streams the corpus once instead of running k selection passes over a
-    # materialized [B, N] score matrix. Measured crossover vs the iterative
-    # engine sits near the same 262k-row mark as the verified engine's.
-    # Mid-size corpora route to the FUSED kernel only above the B=128
-    # serving batch (bench/SEGMAX_AB.jsonl tag=seg131k: at 131k x 768 the
-    # iterative engine keeps B<=128 — 0.89 vs 1.10 ms — but the kernel wins
-    # the throughput batch, B=256: 2.23 vs 2.63 ms; result sets identical).
-    big_n = n > 262_144
-    if (
-        mode == "exact"
-        and kk <= 64
-        and (big_n or (n >= 131_072 and b > 128))
-        and n % SEGMENT == 0
-        and (n <= chunk or n % chunk == 0)
-    ):
-        # Fused Pallas form when shapes align on TPU: the matmul + segment
-        # reduction happen in VMEM, so the [B, chunk] score blocks never
-        # round-trip HBM. The top-j-per-segment kernels additionally return
-        # each segment's top member values + indices, so phase 2 gathers
-        # only the floor(k/j) segments whose j-th value could hide a top-k
-        # row — the rescore row gather is the dominant phase-2 term
-        # (per-row bound, ~38 ns/row on v5e). k >= 4 routes to the top-4
-        # kernel (rescore floor(k/4) segments; ranks 1-3 are gather-free
-        # known candidates), smaller k to the top-2 kernel (measured at
-        # 1M x 768, 128-batch on v5e: top-2 3.15 ms vs 3.95 ms single-max
-        # vs 5.4 ms XLA scan; identical results).
-        from grape_vector_db_tpu.ops.segmax_pallas import (
-            CB as _SEG_CB, segmax_pallas_supported, pallas_segmax2_topk,
-            pallas_segmax4_topk)
-
-        if (
-            segmax_pallas_supported()
-            and metric in ("cosine", "dot")
-            and n % _SEG_CB == 0
-            and d % 128 == 0
-            and b <= 256  # kernel keeps q + [B, CB] dots resident in VMEM;
-                          # bigger batches (e.g. graph-build centroid scans)
-                          # stay on the chunked XLA engine
-        ):
-            # bench/SEGMAX_AB.jsonl tag=top4_ab, 1M x 768: top-4 wins B=128
-            # outright (2.90 vs 2.98 ms — epilogue hides behind the corpus
-            # DMA, smaller rescore). The ORIGINAL phase 2 lost B=256 (4.47
-            # vs 4.35: four full-plane selections outweighed the saved
-            # gather), but the restricted phase 2 (rank-3 pool and rescore
-            # set derived from the m2 selection — only two full-plane
-            # selections remain) flipped it: top-4 4.30-4.33 vs top-2
-            # 4.34-4.44 in same-run pairs, so top-4 takes every batch the
-            # kernel accepts. The sup-output kernel variant (impl="sup",
-            # in-kernel supersegment maxima) measured a WASH on top of this
-            # (tag=sup_ab: 2.836/4.348 vs 2.834/4.328 ms) — the two reduce
-            # passes it eliminates are ~0.04 ms of HBM traffic — so the
-            # default stays "plain"; don't re-attempt without a new lever.
-            eng = (pallas_segmax4_topk if kk >= 4
-                   else pallas_segmax2_topk)
-            vals, idxs = eng(queries, vectors, norms, valid,
-                             k=kk, metric=metric)
-            return _pad_k(vals, idxs, k)
-        if big_n:
-            vals, idxs = _segmax_exact_topk(q, vectors, norms, valid, kk,
-                                            metric, chunk)
-            return _pad_k(vals, idxs, k)
-        # mid-size + big batch but the fused kernel can't take the shape:
-        # the XLA segmax form LOSES to the engines below at this size
-        # (measured 2.3 ms vs 1.0 at 131k) — fall through
+    if engine == "segmax_xla":
+        # Streams the corpus once instead of running k selection passes
+        # over a materialized [B, N] score matrix.
+        vals, idxs = _segmax_exact_topk(q, vectors, norms, valid, kk,
+                                        metric, chunk)
+        return _pad_k(vals, idxs, k)
 
     if b * n <= MAX_SCORE_ELEMS:
         # Fast path: one matmul, full [B, N] scores, fused top-k selection.

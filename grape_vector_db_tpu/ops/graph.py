@@ -1,6 +1,6 @@
 """Batched graph-ANN kernels: bulk k-NN graph build + beam search.
 
-TPU-native replacement for the reference's HNSW (index.rs:68-310, via the
+Device-native replacement for the reference's HNSW (index.rs:68-310, via the
 instant-distance crate): HNSW is pointer-chasing and rebuilds the whole graph
 on every insert (index.rs:164-185). Here:
 
@@ -12,7 +12,7 @@ on every insert (index.rs:164-185). Here:
   query; each iteration expands the best unexpanded pool entries, gathers
   their neighbor lists, scores them in one einsum, and merges with sort-free
   broadcast-compare dedup (expansion-history ring + in-pool + within-batch
-  checks — TPU variadic sorts are the slow path). Static shapes, no
+  checks — variadic sorts are the slow path). Static shapes, no
   data-dependent control flow — the whole search is one XLA program
   (lax.scan over a fixed iteration count).
 
@@ -30,8 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from grape_vector_db_tpu.ops.distance import prepare_queries
-from grape_vector_db_tpu.ops.gather_pallas import gather_dots
+from grape_vector_db_tpu.ops.distance import prepare_queries, rowwise_dots
 
 __all__ = ["build_knn_graph", "beam_search"]
 
@@ -40,11 +39,7 @@ NEG_INF = jnp.float32(-jnp.inf)
 
 def _pairwise_scores(q, cvecs, cnorms, metric):
     """q [C, D] f32 vs cvecs [C, K, D] -> [C, K] similarity."""
-    precision = (
-        lax.Precision.HIGHEST if cvecs.dtype == jnp.float32 else lax.Precision.DEFAULT
-    )
-    dots = jnp.einsum("cd,ckd->ck", q.astype(cvecs.dtype), cvecs,
-                      preferred_element_type=jnp.float32, precision=precision)
+    dots = rowwise_dots(q, cvecs)
     if metric == "cosine":
         return jnp.minimum(dots / jnp.maximum(cnorms, 1e-12), 1.0)
     if metric == "dot":
@@ -180,8 +175,19 @@ def _dots_to_scores(q, dots, cnorms, metric):
     return -(q_sq - 2.0 * dots + cnorms * cnorms)
 
 
+def gather_dots(
+    q: jax.Array,         # [B, D] f32 (already prepare_queries'd)
+    vectors: jax.Array,   # [N, D] storage dtype, device-resident
+    ids: jax.Array,       # [B, C] int32 row ids (out-of-range rows clamped;
+                          #   caller masks their scores)
+) -> jax.Array:
+    """Returns dots [B, C] f32 = q[b] . vectors[ids[b, c]] (row gather +
+    batched product)."""
+    return rowwise_dots(q, vectors[ids])
+
+
 @functools.partial(
-    jax.jit, static_argnames=("k", "pool", "expand", "iters", "metric", "impl")
+    jax.jit, static_argnames=("k", "pool", "expand", "iters", "metric")
 )
 def beam_search(
     queries: jax.Array,     # [B, D] f32
@@ -195,7 +201,6 @@ def beam_search(
     expand: int = 8,
     iters: int = 12,
     metric: str = "cosine",
-    impl: str = "xla",
 ) -> Tuple[jax.Array, jax.Array]:
     """Batched best-first graph search. Returns (scores [B,k], indices [B,k]).
 
@@ -205,11 +210,7 @@ def beam_search(
     copy of a node so it is never re-expanded).
 
     ``entries`` may be per-query ([B, E], e.g. from a centroid probe — a bare
-    kNN graph is not navigable from static entries at scale) or global ([E]).
-
-    ``impl`` selects the candidate-row gather engine (ops/gather_pallas.py):
-    "xla" everywhere, "pallas" on real TPU (DMA-pipelined row copies),
-    "pallas_interpret" for CPU tests of the kernel."""
+    kNN graph is not navigable from static entries at scale) or global ([E])."""
     b, d = queries.shape
     m = neighbors.shape[1]
     q = prepare_queries(queries, metric)
@@ -219,7 +220,7 @@ def beam_search(
     if entries.ndim == 1:
         entries = jnp.broadcast_to(entries[None, :], (b, entries.shape[0]))
     e = entries.shape[1]
-    edots = gather_dots(q, vectors, entries, impl=impl)  # [B, E]
+    edots = gather_dots(q, vectors, entries)  # [B, E]
     enorms = norms[entries]             # [B, E]
     escores = _dots_to_scores(q, edots, enorms, metric)
     escores = jnp.where(valid[entries], escores, NEG_INF)
@@ -245,12 +246,12 @@ def beam_search(
         expanded = expanded.at[rows, sel_pos].set(True)
 
         nbrs = neighbors[sel_idx].reshape(b, expand * m)     # [B, expand*M]
-        cdots = gather_dots(q, vectors, nbrs, impl=impl)     # [B, expand*M]
+        cdots = gather_dots(q, vectors, nbrs)     # [B, expand*M]
         cnorms = norms[nbrs]
         cscores = _dots_to_scores(q, cdots, cnorms, metric)
         cscores = jnp.where(valid[nbrs], cscores, NEG_INF)
-        # Dedup without sorts (broadcast compares are VPU-cheap; variadic sort
-        # is the TPU slow path). A candidate dies if it is already in the pool
+        # Dedup without sorts (broadcast compares are cheap elementwise work;
+        # a variadic sort is the slow path). A candidate dies if it is already in the pool
         # or duplicates an earlier candidate in this batch — exactly the sort-
         # dedup semantics. NOTE: an expanded node that was evicted MAY re-enter
         # and be re-expanded; blocking that with a global history mask cut

@@ -1,6 +1,6 @@
 """Binary quantization kernels: bit packing + XOR/popcount Hamming scan.
 
-TPU-native replacement for the reference's binary quantization
+Device-native replacement for the reference's binary quantization
 (quantization.rs:97-193): threshold binarization into packed bit-planes, Hamming
 distance via XOR + popcount, and the top-candidate selection used by two-stage
 search (Hamming pre-scan -> exact rescore).
@@ -8,8 +8,8 @@ search (Hamming pre-scan -> exact rescore).
 Layout: each vector's bits are packed into ``ceil(dim / 32)`` uint32 words
 (bit j of word w = coord ``w*32 + j`` > threshold). A corpus of N vectors is a
 ``[N, W]`` uint32 array — 32x smaller than f32, matching the reference's
-compression claims while the scan itself runs on the VPU with
-``lax.population_count``.
+compression claims; the reference scan is ``lax.population_count`` over
+XOR'd words, the default scan a sign-bit matmul.
 """
 
 from __future__ import annotations
@@ -58,13 +58,12 @@ def hamming_scores(qcodes: jax.Array, codes: jax.Array,
 
     impl="mxu" (default): sign-bit matmul — for s in {-1,+1}^D,
     dot(s_q, s_x) = D - 2*hamming, so the scan is one bf16 matmul on the
-    MXU after an on-the-fly bit->sign decode. The VPU popcount path
-    ("xla" broadcast / "pallas" fused VMEM kernel) is compute-bound at
-    ~22 ms per 128-batch at 1M x 768 on v5e; the MXU form turns the same
-    scan into ~3 GFLOP of matrix math (sub-ms). The decode materializes
-    the chunk as bf16 (+2x chunk HBM traffic), which is why the caller
-    chunks the corpus. The reference popcounts on CPU with the `hamming`
-    crate (quantization.rs:130-141).
+    matrix units after an on-the-fly bit->sign decode, instead of
+    elementwise XOR + popcount work over a [B, C, W] broadcast. The decode
+    materializes the chunk as bf16 (+2x chunk traffic), which is why the
+    caller chunks the corpus. impl="xla" is the XOR + popcount form, kept as
+    the reference. The reference popcounts on CPU with the `hamming` crate
+    (quantization.rs:130-141).
     """
     if impl == "mxu":
         qs = _unpack_signs(qcodes)
@@ -73,11 +72,8 @@ def hamming_scores(qcodes: jax.Array, codes: jax.Array,
                               preferred_element_type=jnp.float32)
         d_tot = jnp.float32(codes.shape[1] * 32)
         return ((d_tot - dot) * 0.5).astype(jnp.int32)
-    if impl.startswith("pallas") and codes.shape[0] % 512 == 0:
-        from grape_vector_db_tpu.ops.hamming_pallas import hamming_scores_pallas
-
-        return hamming_scores_pallas(qcodes, codes,
-                                     interpret=impl == "pallas_interpret")
+    if impl != "xla":
+        raise ValueError(f"unknown hamming impl: {impl}")
     x = jnp.bitwise_xor(qcodes[:, None, :], codes[None, :, :])  # [B, C, W]
     return jnp.sum(lax.population_count(x), axis=-1, dtype=jnp.int32)
 
@@ -158,16 +154,15 @@ def asym_topk(
 
     The binary analog of asymmetric PQ/ADC scoring: the corpus side is the
     decoded sign vector (what the codes can express) but the query side
-    keeps its real values instead of being crushed to signs. On the MXU
-    this is the SAME bf16 matmul as the Hamming form (hamming_scores
+    keeps its real values instead of being crushed to signs. This is the
+    SAME bf16 matmul as the Hamming form (hamming_scores
     impl="mxu" decodes to ±1 and matmuls sign(q)); only the left operand
     differs — so the scan costs the same and ranks strictly better.
-    Measured at 131k x 768 (bench/binary_asym_ab.py): recall@10 after
-    exact rescore on an isotropic corpus 0.426/0.679/0.884 at budgets
-    64/256/1024 vs Hamming's 0.170/0.330/0.554 (clustered corpora tie at
-    ~0.97). Returns (scores [B, k] f32 DESCENDING, indices [B, k] int32);
+    Recall@10 after exact rescore on an isotropic 131k x 768 corpus was
+    0.426/0.679/0.884 at budgets 64/256/1024 vs Hamming's 0.170/0.330/0.554
+    (clustered corpora tie at ~0.97). Returns (scores [B, k] f32 DESCENDING, indices [B, k] int32);
     invalid rows score -inf. No reference analog (quantization.rs ranks by
-    symmetric Hamming only) — this exists because the MXU decode path
+    symmetric Hamming only) — this exists because the matmul decode path
     makes the asymmetric form free.
     """
     n, w = codes.shape

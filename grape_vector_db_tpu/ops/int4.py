@@ -1,36 +1,28 @@
-"""int4 symmetric quantization — the next rung of the HBM-bandwidth ladder.
+"""int4 symmetric quantization — the next rung of the bandwidth ladder.
 
-The IVF Pallas probe (ops/ivf_pallas.py) is DMA-bound: int8-resident lists
-already ~double the bf16 probe by halving the bytes per list. Packed int4
-halves them AGAIN (0.5 byte/dim), so the same streaming roofline yields
-~2x the int8 probe's query throughput and ~2x its rows/chip.
+The IVF probe (ops/ivf_pallas.py on a GPU) is bound by the bytes it reads:
+int8-resident lists halve the bytes per list of bf16. Packed int4 halves
+them AGAIN (0.5 byte/dim), and doubles the rows a device holds.
 
-Packing layout (the part the TPU dictates): Mosaic cannot lower lane-axis
-interleaves inside a kernel ([C, D/2, 2] -> [C, D] is illegal), so nibbles
-are packed SPLIT-PLANE instead of adjacent-dim: byte ``j`` of a row holds
-dim ``j`` in its low nibble and dim ``j + D/2`` in its high nibble. The
-kernel then unpacks with two pure elementwise ops —
+Packing layout: nibbles are packed SPLIT-PLANE instead of adjacent-dim:
+byte ``j`` of a row holds dim ``j`` in its low nibble and dim ``j + D/2`` in
+its high nibble. A kernel then unpacks with two pure elementwise ops —
 
     lo = (packed & 0xF) - 8      # dims [0,      D/2)
     hi = (packed >> 4)  - 8      # dims [D/2,    D)
 
-— and scores with two MXU dots against the matching query halves:
-``dot(q[:, :D/2], lo.T) + dot(q[:, D/2:], hi.T)``. No transpose, no
-interleave, no gather; the unpack is VPU work fully hidden behind the next
-list's DMA. ``D % 256 == 0`` keeps each half a multiple of the 128-lane
-tile (768 -> 384 = 3 x 128).
+— and dots each half against the matching query half:
+``dot(q[:, :D/2], lo) + dot(q[:, D/2:], hi)``. No interleave, no gather.
 
 Codes are offset-binary: ``u = clip(round(v / s), -8, 7) + 8`` with
 ``s = max|v| / 7`` per row, stored as INT8-typed bytes (bit pattern of the
-unsigned packed value). int8 — not uint8 — because Mosaic kernels can only
-consume int8, and a uint8-typed corpus forces a corpus-wide
-``bitcast_convert_type`` inside every probe dispatch, which XLA
-materializes as a real copy (~0.05 ms/dispatch at 1M x 768 — measured in
-bench/int4_probe_ab.py). A per-row ``factor`` folds dequantization and the
-cosine norm division exactly as the int8 scheme does (ops/int8.py).
+unsigned packed value): a uint8-typed corpus would force a corpus-wide
+``bitcast_convert_type`` before a kernel that takes int8, which XLA
+materializes as a real copy. A per-row ``factor`` folds dequantization and
+the cosine norm division exactly as the int8 scheme does (ops/int8.py).
 
 No reference analog (quantization.rs only has 1-bit); this engine exists
-because the TPU memory system rewards it.
+because device memory bandwidth rewards it.
 """
 
 from __future__ import annotations
@@ -50,7 +42,7 @@ def quantize_int4(vecs: jax.Array) -> Tuple[jax.Array, jax.Array]:
     scale = max|v| / 7; levels -8..7 stored offset-binary (u = q + 8).
     The packed bytes carry the unsigned value's bit pattern in an
     int8-typed array (see module docstring for why int8).
-    D must be even (capacity dims are 128-aligned everywhere above this).
+    D must be even.
     """
     vf = vecs.astype(jnp.float32)
     m, d = vf.shape
@@ -68,7 +60,7 @@ def unpack_int4_split(packed: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """[..., D/2] int8/uint8 -> (lo [..., D/2], hi [..., D/2]) f32 in -8..7.
 
     ``lo`` holds dims [0, D/2), ``hi`` holds dims [D/2, D) — the same two
-    planes the Pallas kernel materializes; callers dot each against the
+    planes the probe kernel unpacks; callers dot each against the
     matching query half (or concatenate for a full row). Accepts either
     byte dtype: the int32 widen + mask recovers the unsigned nibbles from
     int8-typed storage and is a no-op rearrangement for uint8.

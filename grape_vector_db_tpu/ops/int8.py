@@ -1,18 +1,17 @@
-"""int8 symmetric-quantized scan — the HBM-bandwidth play for flat search.
+"""int8 symmetric-quantized scan — the memory-bandwidth play for flat search.
 
-The full-corpus scan at 1M x 768 bf16 sits at the HBM roofline (~726 GB/s,
-measured round 1); no bf16 engine can beat it. Per-row symmetric int8 halves
-the bytes per row, so the same roofline yields ~2x the query throughput; an
-exact bf16 rescore of the top candidates restores near-perfect ranking.
+A full-corpus scan at small batch is bound by the corpus read. Per-row
+symmetric int8 halves the bytes per row; an exact bf16 rescore of the top
+candidates restores near-perfect ranking.
 
 Layout: codes ``[N, D] int8`` (vi = round(127 * v / max|v|)) plus a per-row
 ``factor = (max|v| / 127) / |v|`` that folds dequantization and the cosine
 norm division into one multiply. Query side quantizes the L2-normalized query
 the same way; scores = (qi . vi) * q_scale * factor — a monotonic cosine
-approximation. The MXU multiplies int8 natively (int32 accumulation).
+approximation. The int8 product accumulates in int32.
 
 No reference analog (quantization.rs only has 1-bit); this engine exists
-because the TPU memory system rewards it.
+because device memory bandwidth rewards it.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ def quantize_int8(vecs: jax.Array) -> Tuple[jax.Array, jax.Array]:
 def _block(qi, q_scale, codes_i, factor_i, valid_i, kk: int):
     """Local top-kk within one chunk; caller adds the chunk offset."""
     dots = lax.dot_general(qi, codes_i, (((1,), (1,)), ((), ())),
-                           preferred_element_type=jnp.int32)      # MXU int8
+                           preferred_element_type=jnp.int32)      # int8 MMA
     scores = dots.astype(jnp.float32) * factor_i[None, :] * q_scale
     scores = jnp.where(valid_i[None, :], scores, NEG)
     # candidate selection only — the exact rescore stage decides ranking

@@ -1,7 +1,7 @@
 """K-means as jitted matmul-argmin iterations.
 
 Replaces the reference's hand-rolled CPU k-means (index.rs:429-503
-`kmeans_clustering`) with the MXU form: each iteration is one
+`kmeans_clustering`) with the matmul form: each iteration is one
 ``[N, D] x [D, K]`` matmul for assignment plus a segment-sum for the centroid
 update. Empty clusters keep their previous centroid (the reference re-seeds
 randomly; keeping is deterministic and jit-friendly).
@@ -24,7 +24,8 @@ def _pairwise_sq_dist(x: jax.Array, c: jax.Array) -> jax.Array:
     x2 = jnp.sum(x * x, axis=-1, keepdims=True)          # [N, 1]
     c2 = jnp.sum(c * c, axis=-1)[None, :]                # [1, K]
     xc = lax.dot_general(
-        x, c, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
+        x, c, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
+        precision=lax.Precision.HIGHEST,
     )
     return x2 - 2.0 * xc + c2
 
@@ -40,12 +41,16 @@ def assign_clusters(x: jax.Array, centroids: jax.Array,
     mode="spherical": assign by max cosine (centroids assumed unit-norm; x is
     normalized here). REQUIRED for cosine-metric IVF on near-isotropic
     high-dim data: under L2, |x - c|^2 = |x|^2 - 2x.c + |c|^2 and with x.c ~ 0
-    the smallest-norm centroid captures almost every point (measured: one list
-    held 43% of a random 768-d corpus), which destroys IVF pruning."""
+    the smallest-norm centroid captures almost every point (one list can
+    take nearly half of a random 768-d corpus), which destroys IVF pruning.
+
+    The assignment decides which list a row lands in, so its product runs
+    at full f32 precision (``HIGHEST``, never TF32 on a GPU)."""
     if mode == "spherical":
         sims = lax.dot_general(
             _l2n(x), centroids, (((1,), (1,)), ((), ())),
             preferred_element_type=jnp.float32,
+            precision=lax.Precision.HIGHEST,
         )
         return jnp.argmax(sims, axis=-1).astype(jnp.int32)
     return jnp.argmin(_pairwise_sq_dist(x, centroids), axis=-1).astype(jnp.int32)
@@ -65,7 +70,7 @@ def kmeans(
     ``chunk``: process the sample in row chunks of this size (N % chunk == 0).
     The unchunked form materializes [N, K] one-hot/affinity planes — at
     k=16384 that is 4 GiB per 65k rows, so large-nlist training at large
-    sample sizes needs the chunked scan (same fixed point, bounded VMEM/HBM).
+    sample sizes needs the chunked scan (same fixed point, bounded memory).
     """
     n, d = x.shape
     key = jax.random.PRNGKey(seed)

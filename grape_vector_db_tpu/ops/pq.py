@@ -11,9 +11,9 @@ linear scan regardless, index.rs:620-640). Here PQ is functional end to end:
   ``[S, 256]`` lookup table of subspace dot products, then accumulate
   ``sum_s LUT[s, code[n, s]]`` over the corpus with a subspace scan.
 
-TPU economics note: the MXU makes dense bf16 dot products nearly free, so PQ
-on TPU is a *capacity* play (e.g. 96 bytes/vector for 768-d PQ96 vs 1536 bf16
-bytes — 16x more corpus per chip), not a latency play. The ADC scan is
+Economics note: matrix units make dense bf16 dot products nearly free, so PQ
+is a *capacity* play (e.g. 96 bytes/vector for 768-d PQ96 vs 1536 bf16
+bytes — 16x more corpus per device), not a latency play. The ADC scan is
 gather-bound; pair it with exact rescoring of the top candidates like the
 binary index does.
 """

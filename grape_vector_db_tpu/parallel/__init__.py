@@ -3,7 +3,7 @@
 Replaces the reference's scatter-gather shard search (shard.rs:759-901, which
 was mock/HTTP) with SPMD over a ``jax.sharding.Mesh``: the corpus shards across
 the ``shard`` mesh axis, every device computes its local top-k, and one
-``all_gather`` over ICI merges the per-shard winners.
+``all_gather`` over the device interconnect merges the per-shard winners.
 """
 
 from grape_vector_db_tpu.parallel.mesh import (

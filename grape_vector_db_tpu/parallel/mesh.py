@@ -1,18 +1,19 @@
 """SPMD corpus sharding over a device mesh.
 
-The TPU-native rewrite of the reference's distributed query data plane:
+The SPMD rewrite of the reference's distributed query data plane:
 - shard.rs hash-range ShardManager  ->  static block assignment: global slot s
   lives on device s // per_shard_capacity of the ``shard`` mesh axis.
 - shard.rs:759-901 scatter-gather search (per-shard tasks + HTTP + sort-merge)
   ->  one shard_map: local chunked-matmul top-k per device, then a single
-  ``all_gather`` over ICI and a replicated global top-k merge.
+  ``all_gather`` over the device interconnect and a replicated global top-k
+  merge.
 - shard migration / rebalancing  ->  resharding is a device_put with a new
   NamedSharding over the same arrays (see redistribute()).
 
 Queries are replicated (every device scores its local shard for the whole query
 batch); the corpus is sharded along rows. This is the layout the scaling-book
-recipe prescribes for corpus-parallel retrieval: collectives ride ICI, payload
-gathers stay host-side.
+recipe prescribes for corpus-parallel retrieval: collectives ride the device
+interconnect (NVLink on a GPU host), payload gathers stay host-side.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ from grape_vector_db_tpu.index.ivf_int4 import (Int4IvfDeviceIndex,
     _int4_cell_scatter)
 from grape_vector_db_tpu.index.ivf_int8 import (Int8IvfDeviceIndex,
     _factor_invalidate, _int8_cell_scatter, _nv_scatter)
-from grape_vector_db_tpu.ops.distance import score_block, prepare_queries
+from grape_vector_db_tpu.ops.distance import (prepare_queries, rowwise_dots,
+                                              score_block)
+from grape_vector_db_tpu.ops.ivf_probe import probe_lists
 from grape_vector_db_tpu.ops.topk import take_topk
 from grape_vector_db_tpu.utils.buckets import PAD_SLOT, next_bucket, pad_rows
 from grape_vector_db_tpu.utils.fetch import fetch_scores_slots
@@ -132,31 +135,17 @@ def _local_topk(q, vecs, norms, valid, k: int, metric: str, chunk: int,
 
     n, d = vecs.shape
     b = q.shape[0]
-    # Large local shards take the fused top-j segmax kernels (same gates +
-    # k>=4 split as scored_topk's single-chip routing): the [B, n_local]
-    # score plane never reaches HBM and phase 2 rescores only floor(k/j)
-    # segments. Pallas inside shard_map is the established pattern here
-    # (the IVF probes run the same way). q is already prepared — the
-    # engines' own prepare_queries is idempotent for cosine and identity
-    # for dot.
-    if mode == "exact" and k <= 64 and n > 262_144:
-        from grape_vector_db_tpu.ops.segmax_pallas import (
-            CB as _SEG_CB, pallas_segmax2_topk, pallas_segmax4_topk,
-            segmax_pallas_supported)
+    # Large local shards take the fused segment-max kernel (same gate as
+    # scored_topk's single-device routing): the [B, n_local] score plane
+    # never reaches device memory. q is already prepared — the engine's own
+    # prepare_queries is idempotent for cosine and identity for dot.
+    from grape_vector_db_tpu.ops.distance import exact_engine
 
-        if (
-            segmax_pallas_supported()
-            and metric in ("cosine", "dot")
-            and n % _SEG_CB == 0
-            and d % 128 == 0
-            and b <= 256
-        ):
-            # same split as scored_topk: top-4 at every accepted batch since
-            # the restricted phase 2 (bench/SEGMAX_AB.jsonl tag=top4_ab:
-            # B=128 2.90 vs 2.98 ms; B=256 4.30-4.33 vs 4.34-4.44)
-            eng = (pallas_segmax4_topk if min(k, n) >= 4
-                   else pallas_segmax2_topk)
-            return eng(q, vecs, norms, valid, k=min(k, n), metric=metric)
+    if exact_engine(n, d, b, k, vecs.dtype, metric, mode,
+                    chunk) == "segmax_kernel":
+        from grape_vector_db_tpu.ops.segmax_pallas import segmax_topk
+
+        return segmax_topk(q, vecs, norms, valid, k=min(k, n), metric=metric)
     if b * n <= 2**27:
         s = score_block(q, vecs, norms, valid, metric)
         vals, idxs = _select_topk(s, min(k, n), mode, recall_target)
@@ -212,7 +201,7 @@ def sharded_scored_topk(
                                  mode=mode, recall_target=recall_target)
         shard_id = lax.axis_index(shard_axis)
         gidx = idxs + shard_id * per_shard
-        # One collective over ICI: gather every shard's top-k, then merge.
+        # One collective: gather every shard's top-k, then merge.
         all_vals = lax.all_gather(vals, shard_axis, axis=1, tiled=True)   # [B, S*k]
         all_idx = lax.all_gather(gidx, shard_axis, axis=1, tiled=True)
         return take_topk(all_vals, all_idx, k)
@@ -530,7 +519,7 @@ class ShardedFlatIndex(VectorIndex):
 @functools.partial(
     jax.jit,
     static_argnames=("k", "nprobe", "metric", "mesh", "shard_axis",
-                     "use_pallas", "interpret", "replica_axis"),
+                     "use_kernel", "replica_axis"),
 )
 def sharded_ivf_topk(
     queries: jax.Array,    # [B, D] f32, replicated
@@ -543,10 +532,9 @@ def sharded_ivf_topk(
     metric: str,
     mesh: Mesh,
     shard_axis: str = "shard",
-    recip: jax.Array | None = None,  # [L, 8, C] weight plane, sharded axis 2
-    use_pallas: bool = False,
-    interpret: bool = False,
-    nblocks: jax.Array | None = None,  # [L] int32 per-DEVICE occupied blocks
+    recip: jax.Array | None = None,  # [L, C] weight plane, sharded axis 1
+    use_kernel: bool = False,        # probe kernel: needs recip and fill
+    fill: jax.Array | None = None,     # [L] int32 per-DEVICE rows in use
                                        # (replicated; striped placement makes
                                        # every slice's watermark uniform)
     replica_axis: str | None = None,   # 2D (replica x shard) mesh: the query
@@ -560,53 +548,38 @@ def sharded_ivf_topk(
     Sharding *within* each list's capacity (P(None, shard, None)) keeps the
     program uniform: every device scores the SAME top-nprobe lists over its
     1/S slice of each list — no ownership branching, no load skew from hot
-    lists — then one all_gather over ICI merges per-device winners. Returns
+    lists — then one all_gather merges per-device winners. Returns
     replicated (scores [B, k], global slots [B, k]) with
     slot = list * C_global + shard_id * C_local + pos.
 
-    With ``use_pallas`` (angular metrics; requires the ``recip`` weight
-    plane) each device scores its local list slices with the DMA-pipelined
-    kernel instead of the XLA row gather — the same ~54x bandwidth win the
-    single-chip probe measured, per device.
+    With ``use_kernel`` (angular metrics; requires the ``recip`` weight
+    plane) each device scores its local list slices with the probe kernel
+    (ops/ivf_pallas.py) instead of the XLA row gather.
     """
     n_shards = mesh.shape[shard_axis]
     c_global = vecs.shape[1]
     c_local = c_global // n_shards
-    has_nblocks = nblocks is not None
 
     def spmd(q, cents, v, nrm, msk, *rest):
         b, _ = q.shape
-        l = v.shape[0]
         qp = prepare_queries(q, metric)
-        cq = lax.dot_general(qp, cents, (((1,), (1,)), ((), ())),
-                             preferred_element_type=jnp.float32)      # [B, L]
-        if metric == "euclidean":
-            c2 = jnp.sum(cents * cents, axis=-1)[None, :]
-            cq = -(jnp.sum(qp * qp, axis=-1, keepdims=True) - 2 * cq + c2)
-        _, probe = lax.top_k(cq, min(nprobe, l))                      # [B, P]
+        probe = probe_lists(qp, cents, nprobe, metric)                # [B, P]
 
-        if use_pallas:
+        if use_kernel:
             from grape_vector_db_tpu.ops.ivf_pallas import ivf_probe_scores
 
-            scores = ivf_probe_scores(qp, probe.astype(jnp.int32), v, rest[0],
-                                      nblocks=rest[1] if has_nblocks else None,
-                                      interpret=interpret)   # [B, P, C/S]
+            scores = ivf_probe_scores(qp, probe, v, rest[0], fill=rest[1],
+                                      fmt="bf16")            # [B, P, C/S]
             if metric == "cosine":
                 scores = jnp.minimum(scores, 1.0)
-            # validity/filter fold (the recip==0 bias already handles
+            # validity/filter fold (the recip==0 sentinel already handles
             # deletes; msk additionally carries the caller's filter mask)
             scores = jnp.where(msk[probe], scores, -jnp.inf)
         else:
             cand_vecs = v[probe]      # [B, P, C/S, D]
             cand_norms = nrm[probe]   # [B, P, C/S]
             cand_valid = msk[probe]
-            precision = (
-                lax.Precision.HIGHEST if v.dtype == jnp.float32
-                else lax.Precision.DEFAULT
-            )
-            dots = jnp.einsum("bd,bpcd->bpc", qp.astype(v.dtype), cand_vecs,
-                              preferred_element_type=jnp.float32,
-                              precision=precision)
+            dots = rowwise_dots(qp, cand_vecs)                  # [B, P, C/S]
             if metric == "cosine":
                 scores = jnp.minimum(dots / jnp.maximum(cand_norms, 1e-12), 1.0)
             elif metric == "dot":
@@ -624,7 +597,7 @@ def sharded_ivf_topk(
         kk = min(k, p * c_local)
         vals, pos_k = lax.top_k(scores.reshape(b, p * c_local), kk)
         slots = jnp.take_along_axis(gslot, pos_k, axis=1)
-        # One collective over ICI: merge every device's local winners.
+        # One collective: merge every device's local winners.
         all_vals = lax.all_gather(vals, shard_axis, axis=1, tiled=True)
         all_slots = lax.all_gather(slots, shard_axis, axis=1, tiled=True)
         fvals, fslots = take_topk(all_vals, all_slots, min(k, all_vals.shape[1]))
@@ -637,19 +610,9 @@ def sharded_ivf_topk(
     specs = [P(), P(), P(None, shard_axis, None), P(None, shard_axis),
              P(None, shard_axis)]
     operands = [queries, centroids, vecs, norms, valid]
-    if use_pallas:
-        specs.append(P(None, None, shard_axis))
-        operands.append(recip)
-        if has_nblocks:
-            # A synthesized full-fetch default here would be WRONG for tiny
-            # local slices (c_local // RB == 0 -> zero DMA blocks, garbage
-            # scores); absent nblocks, ivf_probe_scores degrades correctly.
-            specs.append(P())
-            operands.append(nblocks)
-        else:
-            # keep rest[] positional shape stable for the spmd body
-            specs.append(P())
-            operands.append(jnp.zeros((0,), jnp.int32))
+    if use_kernel:
+        specs += [P(None, shard_axis), P()]
+        operands += [recip, fill]
     qspec = P(replica_axis, None) if replica_axis else P()
     specs[0] = qspec
     return jax.shard_map(
@@ -664,7 +627,7 @@ def sharded_ivf_topk(
 @functools.partial(
     jax.jit,
     static_argnames=("k", "nprobe", "metric", "rescore", "mesh", "shard_axis",
-                     "use_pallas", "interpret", "replica_axis", "codes_kind"),
+                     "use_kernel", "replica_axis", "codes_kind"),
 )
 def sharded_ivf_int8_topk(
     queries: jax.Array,    # [B, D] f32, replicated
@@ -681,10 +644,9 @@ def sharded_ivf_int8_topk(
     rescore: int,
     mesh: Mesh,
     shard_axis: str = "shard",
-    factor: jax.Array | None = None,  # [L, 8, C] weight plane, sharded axis 2
-    use_pallas: bool = False,
-    interpret: bool = False,
-    nblocks: jax.Array | None = None,  # [L] int32 per-DEVICE occupied blocks
+    factor: jax.Array | None = None,  # [L, C] weight plane, sharded axis 1
+    use_kernel: bool = False,        # probe kernel: needs factor and fill
+    fill: jax.Array | None = None,     # [L] int32 per-DEVICE rows in use
     replica_axis: str | None = None,   # 2D mesh: see sharded_ivf_topk
     codes_kind: str = "int8",          # "int8" | "int4" (packed nibbles)
 ) -> Tuple[jax.Array, jax.Array]:
@@ -701,54 +663,42 @@ def sharded_ivf_int8_topk(
     c_global = codes.shape[1]
     c_local = c_global // n_shards
     with_v = rescore > 0 and vecs is not None
-    has_nblocks = nblocks is not None
 
     def spmd(q, cents, cd, sc, nrm, msk, *rest):
         rest = list(rest)
-        fct = rest.pop(0) if use_pallas else None
-        nblk = rest.pop(0) if use_pallas else None
-        if not has_nblocks:
-            nblk = None
+        fct = rest.pop(0) if use_kernel else None
+        lfill = rest.pop(0) if use_kernel else None
         v = rest[0] if rest else None
         b, _ = q.shape
-        l = cd.shape[0]
         qp = prepare_queries(q, metric)
-        cq = lax.dot_general(qp, cents, (((1,), (1,)), ((), ())),
-                             preferred_element_type=jnp.float32)      # [B, L]
-        _, probe = lax.top_k(cq, min(nprobe, l))                      # [B, P]
+        probe = probe_lists(qp, cents, nprobe, metric)                # [B, P]
 
-        if use_pallas:
-            from grape_vector_db_tpu.ops.ivf_pallas import (
-                ivf_probe_scores_int4, ivf_probe_scores_int8)
+        if use_kernel:
+            from grape_vector_db_tpu.ops.ivf_pallas import ivf_probe_scores
 
-            probe_fn = (ivf_probe_scores_int4 if codes_kind == "int4"
-                        else ivf_probe_scores_int8)
-            scores = probe_fn(qp, probe.astype(jnp.int32), cd,
-                              fct, nblocks=nblk, interpret=interpret)
+            scores = ivf_probe_scores(qp, probe, cd, fct, fill=lfill,
+                                      fmt=codes_kind)
             if metric == "cosine":
                 scores = jnp.minimum(scores, 1.0)
             scores = jnp.where(msk[probe], scores, -jnp.inf)
         elif codes_kind == "int4":
             from grape_vector_db_tpu.ops.int4 import unpack_int4
 
-            cand = unpack_int4(cd[probe]).astype(jnp.bfloat16)
             if metric == "cosine":
                 f = sc[probe] / jnp.maximum(nrm[probe], 1e-12)
             else:
                 f = sc[probe]
             f = jnp.where(msk[probe], f, 0.0)
-            dots = jnp.einsum("bd,bpcd->bpc", qp.astype(jnp.bfloat16), cand,
-                              preferred_element_type=jnp.float32)
+            dots = rowwise_dots(qp, unpack_int4(cd[probe]),
+                                q_dtype=jnp.bfloat16)
             scores = dots * f + jnp.where(f == 0.0, -1e9, 0.0)
         else:
-            cand = cd[probe].astype(jnp.bfloat16)     # [B, P, C/S, D]
             if metric == "cosine":
                 f = sc[probe] / jnp.maximum(nrm[probe], 1e-12)
             else:
                 f = sc[probe]
             f = jnp.where(msk[probe], f, 0.0)
-            dots = jnp.einsum("bd,bpcd->bpc", qp.astype(jnp.bfloat16), cand,
-                              preferred_element_type=jnp.float32)
+            dots = rowwise_dots(qp, cd[probe])              # [B, P, C/S]
             scores = dots * f + jnp.where(f == 0.0, -1e9, 0.0)
 
         p = probe.shape[1]
@@ -765,11 +715,7 @@ def sharded_ivf_int8_topk(
             cn = nrm[lists, pp]
             live = jnp.take_along_axis(
                 msk[probe].reshape(b, p * c_local), ridx, axis=1)
-            prec = (lax.Precision.HIGHEST if v.dtype == jnp.float32
-                    else lax.Precision.DEFAULT)
-            d2 = jnp.einsum("bd,brd->br", qp.astype(v.dtype), cvecs,
-                            preferred_element_type=jnp.float32,
-                            precision=prec)
+            d2 = rowwise_dots(qp, cvecs)
             if metric == "cosine":
                 exact = jnp.minimum(d2 / jnp.maximum(cn, 1e-12), 1.0)
             else:
@@ -801,12 +747,9 @@ def sharded_ivf_int8_topk(
     cellv = P(None, shard_axis)
     specs = [P(), P(), cell, cellv, cellv, cellv]
     operands = [queries, centroids, codes, scales, norms, valid]
-    if use_pallas:
-        specs.append(P(None, None, shard_axis))
-        operands.append(factor)
-        specs.append(P())
-        operands.append(nblocks if has_nblocks
-                        else jnp.zeros((0,), jnp.int32))
+    if use_kernel:
+        specs += [P(None, shard_axis), P()]
+        operands += [factor, fill]
     if with_v:
         specs.append(cell)
         operands.append(vecs)
@@ -848,7 +791,7 @@ def sharded_ivf_exhaustive_topk(
     ops/ivf_scan.py::ivf_exhaustive_masked_topk).
 
     Phase 1 is embarrassingly SPMD: each device streams its local [L, C/S]
-    slice of every list once (chunked MXU einsums) and reduces each list to
+    slice of every list once (chunked einsums) and reduces each list to
     its masked score maximum; one ``lax.pmax`` over the shard axis makes the
     [B, L] plane global, so every device selects the SAME top-``P`` lists
     (deterministic iterative selection — no cross-device divergence).
@@ -861,8 +804,7 @@ def sharded_ivf_exhaustive_topk(
     collective (same pre-collective trick as ``sharded_ivf_int8_topk``).
 
     Reference parity: filtering.rs:374-400 — the reference post-intersects a
-    full scan, always exact; this keeps that contract on the sharded kinds
-    (r4 verdict item 2: they previously opted out entirely).
+    full scan, always exact; this keeps that contract on the sharded kinds.
     """
     n_shards = mesh.shape[shard_axis]
     c_global = data.shape[1]
@@ -924,8 +866,7 @@ def sharded_ivf_exhaustive_topk(
 
         # Phase 2: score this device's local cells of the selected lists.
         cand = dequant(dd_all[probe])                       # [B, P, C/S, D]
-        dots = jnp.einsum("bd,bpcd->bpc", qb, cand,
-                          preferred_element_type=jnp.float32)
+        dots = rowwise_dots(qb, cand, q_dtype=jnp.bfloat16)
         w = w_all[probe]                                    # [B, P, C/S]
         scores = jnp.where((w == 0.0) | dup[:, :, None], -jnp.inf, dots * w)
         if codes_kind == "bf16" and metric == "cosine":
@@ -941,8 +882,7 @@ def sharded_ivf_exhaustive_topk(
             lists = jnp.take_along_axis(probe, pl_, axis=1)
             cvecs = v[lists, pp]                            # [B, R, D]
             cn = nrm_all[lists, pp]
-            d2 = jnp.einsum("bd,brd->br", qp.astype(v.dtype), cvecs,
-                            preferred_element_type=jnp.float32)
+            d2 = rowwise_dots(qp, cvecs)
             if metric == "cosine":
                 exact = jnp.minimum(d2 / jnp.maximum(cn, 1e-12), 1.0)
             else:
@@ -1099,7 +1039,7 @@ def sharded_ivf_compact_topk(
 
 class ShardedIvfIndex(IvfDeviceIndex):
     """Mesh-sharded IVF: the engine that carries the sublinear multi-chip
-    story (VERDICT r1 item 6). Same VectorIndex/IvfDeviceIndex contract and
+    story. Same VectorIndex/IvfDeviceIndex contract and
     host bookkeeping; the device arrays shard each list's capacity across the
     ``shard`` mesh axis and search runs as one shard_map with a single
     all_gather merge (scatter-gather of shard.rs:759-901, SPMD for real)."""
@@ -1135,38 +1075,22 @@ class ShardedIvfIndex(IvfDeviceIndex):
         super().__init__(dimension, **kwargs)
 
     def _shard_cap(self, cap: int) -> int:
-        """Round list capacity so it splits evenly across the shard axis —
-        and, when the per-device Pallas probe is live, so each LOCAL slice
-        stays 128-lane-aligned for Mosaic DMA."""
-        if not hasattr(self, "_pallas_base"):
-            # parent __init__'s decision (metric, backend/force, dim align)
-            self._pallas_base = self._use_pallas
+        """Round list capacity so it splits evenly across the shard axis."""
         unit = self.n_shards
-        if self._pallas_base and not self._pallas_interpret:
-            unit *= 128
         return ((cap + unit - 1) // unit) * unit
 
     def _alloc(self, cap: int) -> None:
         cap = self._shard_cap(cap)
         self.list_cap = cap
         l, d = self.nlist, self._dim
-        # per-device Pallas probe needs each local list slice 128-aligned
-        # (always true under the interpreter used on CPU meshes)
-        self._use_pallas = self._pallas_base and (
-            self._pallas_interpret or (cap // self.n_shards) % 128 == 0)
         self.vecs = jax.device_put(
             jnp.zeros((l, cap, d), dtype=self.storage_dtype), self._cell_sharding)
         self.norms = jax.device_put(
             jnp.zeros((l, cap), dtype=jnp.float32), self._cellv_sharding)
         self.valid = jax.device_put(
             jnp.zeros((l, cap), dtype=jnp.bool_), self._cellv_sharding)
-        self.recip = (jax.device_put(
-            jnp.zeros((l, 8, cap), dtype=jnp.float32), self._weight_sharding)
-            if self._use_pallas else None)
-
-    @property
-    def _weight_sharding(self):
-        return NamedSharding(self.mesh, P(None, None, self.shard_axis))
+        self.recip = jax.device_put(
+            jnp.zeros((l, cap), dtype=jnp.float32), self._cellv_sharding)
 
     def _phys_pos(self, n: int) -> int:
         """Stripe logical insert order across the shard axis: row n lands on
@@ -1178,16 +1102,14 @@ class ShardedIvfIndex(IvfDeviceIndex):
         s = self.n_shards
         return (n % s) * (self.list_cap // s) + n // s
 
-    def _sharded_nblocks(self) -> jax.Array:
-        """Per-DEVICE occupied RB-row blocks, replicated [L] (striping makes
-        every device's watermark uniform to within one row)."""
-        if self._nblocks_cache is None:
-            from grape_vector_db_tpu.ops.ivf_pallas import nblocks_from_counts
-
+    def _list_fill(self) -> jax.Array:
+        """Per-DEVICE rows in use, replicated [L] (striping makes every
+        device's watermark uniform to within one row)."""
+        if self._fill_cache is None:
             per_dev = -(-self._next_pos // self.n_shards)  # ceil
-            self._nblocks_cache = jax.device_put(
-                nblocks_from_counts(per_dev), self._repl)
-        return self._nblocks_cache
+            self._fill_cache = jax.device_put(
+                jnp.asarray(per_dev, dtype=jnp.int32), self._repl)
+        return self._fill_cache
 
     def train(self, sample, seed: int = 0) -> None:
         super().train(sample, seed=seed)
@@ -1220,9 +1142,8 @@ class ShardedIvfIndex(IvfDeviceIndex):
             k=k, nprobe=min(nprobe or self.nprobe, self.nlist),
             metric=self.metric,
             mesh=self.mesh, shard_axis=self.shard_axis,
-            recip=self.recip, use_pallas=self._use_pallas,
-            interpret=self._pallas_interpret,
-            nblocks=self._sharded_nblocks() if self._use_pallas else None,
+            recip=self.recip, use_kernel=self._use_kernel,
+            fill=self._list_fill() if self._use_kernel else None,
             replica_axis=self.replica_axis,
         )
 
@@ -1289,20 +1210,6 @@ class ShardedIvfIndex(IvfDeviceIndex):
             rescore=rescore)
 
 
-@functools.partial(jax.jit, donate_argnums=(0, 1))
-def _int8_cs_scatter(codes, scales, lists, pos, new_vecs):
-    """Quantize rows (per-row symmetric int8, ops/int8.py scheme) and scatter
-    code + scale planes at (list, pos) — the sharded layout keeps validity in
-    ``valid`` (no factor plane; the SPMD probe folds scale/norm/validity on
-    the fly)."""
-    from grape_vector_db_tpu.ops.int8 import quantize_int8
-
-    vi, sc = quantize_int8(new_vecs)
-    codes = codes.at[lists, pos].set(vi, mode="drop")
-    scales = scales.at[lists, pos].set(sc, mode="drop")
-    return codes, scales
-
-
 class ShardedInt8IvfIndex(ShardedIvfIndex, Int8IvfDeviceIndex):
     """Mesh-sharded int8 IVF: the capacity+bandwidth engine across chips.
 
@@ -1326,8 +1233,6 @@ class ShardedInt8IvfIndex(ShardedIvfIndex, Int8IvfDeviceIndex):
         cap = self._shard_cap(cap)
         self.list_cap = cap
         l, d = self.nlist, self._dim
-        self._use_pallas = self._pallas_base and (
-            self._pallas_interpret or (cap // self.n_shards) % 128 == 0)
         # capacity config: the bf16 plane must never be materialized, even
         # transiently — at target fill it alone would OOM the mesh
         self.vecs = (jax.device_put(
@@ -1337,14 +1242,15 @@ class ShardedInt8IvfIndex(ShardedIvfIndex, Int8IvfDeviceIndex):
             jnp.zeros((l, cap), dtype=jnp.float32), self._cellv_sharding)
         self.valid = jax.device_put(
             jnp.zeros((l, cap), dtype=jnp.bool_), self._cellv_sharding)
-        self.recip = None  # int8 stage-1 streams the factor plane instead
+        self.recip = None  # the rescore folds norms on the fly
         self.codes = jax.device_put(
             jnp.zeros((l, cap, d), dtype=jnp.int8), self._cell_sharding)
         self.scales = jax.device_put(
             jnp.zeros((l, cap), dtype=jnp.float32), self._cellv_sharding)
-        self.factor = (jax.device_put(
-            jnp.zeros((l, 8, cap), dtype=jnp.float32), self._weight_sharding)
-            if self._use_pallas else None)
+        # the probe kernel's weight plane (the XLA probe folds scale, norm
+        # and validity on the fly instead); 4 bytes per cell
+        self.factor = jax.device_put(
+            jnp.zeros((l, cap), dtype=jnp.float32), self._cellv_sharding)
 
     def _scatter_rows(self, lists_p, pos_p, vecs_p, norms_p) -> None:
         if self.keep_bf16:
@@ -1352,18 +1258,13 @@ class ShardedInt8IvfIndex(ShardedIvfIndex, Int8IvfDeviceIndex):
         else:
             self.norms, self.valid = _nv_scatter(
                 self.norms, self.valid, lists_p, pos_p, norms_p)
-        if self.factor is not None:
-            self.codes, self.scales, self.factor = _int8_cell_scatter(
-                self.codes, self.scales, self.factor, lists_p, pos_p, vecs_p,
-                norms_p, metric=self.metric)
-        else:
-            self.codes, self.scales = _int8_cs_scatter(
-                self.codes, self.scales, lists_p, pos_p, vecs_p)
+        self.codes, self.scales, self.factor = _int8_cell_scatter(
+            self.codes, self.scales, self.factor, lists_p, pos_p, vecs_p,
+            norms_p, metric=self.metric)
 
     def _invalidate_cells(self, lists_p, pos_p) -> None:
         IvfDeviceIndex._invalidate_cells(self, lists_p, pos_p)
-        if self.factor is not None:
-            self.factor = _factor_invalidate(self.factor, lists_p, pos_p)
+        self.factor = _factor_invalidate(self.factor, lists_p, pos_p)
 
     def _main_topk(self, qp: np.ndarray, k: int, mask, nprobe=None):
         valid = self.valid
@@ -1380,24 +1281,11 @@ class ShardedInt8IvfIndex(ShardedIvfIndex, Int8IvfDeviceIndex):
             k=k, nprobe=min(nprobe or self.nprobe, self.nlist),
             metric=self.metric, rescore=r,
             mesh=self.mesh, shard_axis=self.shard_axis,
-            factor=self.factor, use_pallas=self._use_pallas,
-            interpret=self._pallas_interpret,
-            nblocks=self._sharded_nblocks() if self._use_pallas else None,
+            factor=self.factor, use_kernel=self._use_kernel,
+            fill=self._list_fill() if self._use_kernel else None,
             replica_axis=self.replica_axis,
             codes_kind=self.codes_kind,
         )
-
-
-@functools.partial(jax.jit, donate_argnums=(0, 1))
-def _int4_cs_scatter(codes, scales, lists, pos, new_vecs):
-    """Int4 twin of ``_int8_cs_scatter``: quantize rows to split-plane packed
-    nibbles (ops/int4.py) and scatter code + scale planes at (list, pos)."""
-    from grape_vector_db_tpu.ops.int4 import quantize_int4
-
-    vi, sc = quantize_int4(new_vecs)
-    codes = codes.at[lists, pos].set(vi, mode="drop")
-    scales = scales.at[lists, pos].set(sc, mode="drop")
-    return codes, scales
 
 
 class ShardedInt4IvfIndex(ShardedInt8IvfIndex, Int4IvfDeviceIndex):
@@ -1428,10 +1316,6 @@ class ShardedInt4IvfIndex(ShardedInt8IvfIndex, Int4IvfDeviceIndex):
         else:
             self.norms, self.valid = _nv_scatter(
                 self.norms, self.valid, lists_p, pos_p, norms_p)
-        if self.factor is not None:
-            self.codes, self.scales, self.factor = _int4_cell_scatter(
-                self.codes, self.scales, self.factor, lists_p, pos_p, vecs_p,
-                norms_p, metric=self.metric)
-        else:
-            self.codes, self.scales = _int4_cs_scatter(
-                self.codes, self.scales, lists_p, pos_p, vecs_p)
+        self.codes, self.scales, self.factor = _int4_cell_scatter(
+            self.codes, self.scales, self.factor, lists_p, pos_p, vecs_p,
+            norms_p, metric=self.metric)

@@ -117,7 +117,7 @@ class OpenAICompatibleProvider(EmbeddingProvider):
 def create_provider(config: EmbeddingConfig) -> EmbeddingProvider:
     """Factory (embeddings.rs:269-286): openai/azure/nvidia/huggingface/ollama all
     speak the OpenAI-compatible shape; 'mock' is the offline fixture; 'device'
-    is the TPU-native local embedder (signed feature hashing + MXU projection
+    is the device-native local embedder (signed feature hashing + matmul projection
     — similar texts get similar vectors, no network)."""
     if config.provider == "mock":
         return MockEmbeddingProvider(config.dimension)

@@ -7,7 +7,7 @@ p50/p95/p99 (metrics.rs:47-86), hit/miss counters, a 60s-window QPS calculator
 endpoint (same ``grape_vector_db_*`` metric names, metrics.rs:352-402) renders
 from this collector in the server layer.
 
-TPU addition: ``record_device_time`` tracks kernel wall time separately from
+Device addition: ``record_device_time`` tracks kernel wall time separately from
 end-to-end latency so HBM-bound kernels can be monitored against roofline.
 """
 
@@ -99,26 +99,39 @@ class MetricsCollector:
 
     def record_hbm(self) -> None:
         """Sample device memory occupancy into gauges (SURVEY §2.2 metrics
-        row: HBM gauge). TPU runtimes report bytes_in_use / bytes_limit via
+        row: HBM gauge) for EVERY local device: ``hbm_bytes_in_use`` /
+        ``hbm_bytes_limit`` / ``hbm_occupancy`` are the sums over devices
+        (occupancy = summed use over summed limit), and each device also gets
+        ``hbm_bytes_in_use_dev{i}``. GPU runtimes report these through
         ``Device.memory_stats()``; backends without stats (CPU) are a no-op.
         Called by snapshot(), so /metrics always carries a fresh sample."""
         try:
             import jax
 
-            stats = jax.local_devices()[0].memory_stats()
+            devices = jax.local_devices()
+            per_dev = [d.memory_stats() for d in devices]
         except Exception:
             return
-        if not stats:
-            return
-        used = stats.get("bytes_in_use")
-        limit = stats.get("bytes_limit")
-        with self._lock:
+        gauges = {}
+        used_sum = limit_sum = 0.0
+        for i, stats in enumerate(per_dev):
+            if not stats:
+                continue
+            used = stats.get("bytes_in_use")
+            limit = stats.get("bytes_limit")
             if used is not None:
-                self._gauges["hbm_bytes_in_use"] = float(used)
+                gauges[f"hbm_bytes_in_use_dev{i}"] = float(used)
+                used_sum += float(used)
             if limit:
-                self._gauges["hbm_bytes_limit"] = float(limit)
-                if used is not None:
-                    self._gauges["hbm_occupancy"] = float(used) / float(limit)
+                limit_sum += float(limit)
+        if not gauges and not limit_sum:
+            return
+        gauges["hbm_bytes_in_use"] = used_sum
+        if limit_sum:
+            gauges["hbm_bytes_limit"] = limit_sum
+            gauges["hbm_occupancy"] = used_sum / limit_sum
+        with self._lock:
+            self._gauges.update(gauges)
 
     def _trim(self, now: float) -> None:
         cutoff = now - self._qps_window_s

@@ -1,7 +1,8 @@
 """FileDocumentStore — durable WAL + snapshot store with checksummed backups.
 
 Rebuilds the reference's sled persistence semantics without sled:
-- write path: append-only WAL (msgpack frames) + periodic snapshot compaction
+- write path: append-only WAL (storage/codec.py frames) + periodic snapshot
+  compaction
   (sled's LSM tree becomes WAL+snapshot; flush interval semantics of
   advanced_storage.rs:36-47).
 - backup/restore: single-file, SHA-256-checksummed, written via tmp + atomic
@@ -9,30 +10,34 @@ Rebuilds the reference's sled persistence semantics without sled:
 - generic KV namespace used by Raft state persistence
   (advanced_storage.rs:627-651).
 
-Embeddings are serialized as raw little-endian f32 bytes (half the size of
-msgpack float lists, zero-copy numpy decode).
+Embeddings are serialized as raw little-endian f32 bytes (a quarter of the
+size of JSON number lists, zero-copy numpy decode). Only the standard library
+is used: struct-framed records, JSON headers, zlib-compressed snapshots.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import struct
 import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
-import msgpack
 import numpy as np
-import zstandard
 
 from grape_vector_db_tpu.errors import BackupError, SerializationError, StorageError
+from grape_vector_db_tpu.storage import codec
 from grape_vector_db_tpu.storage.store import DocumentStore, StorageStats
 from grape_vector_db_tpu.types import DocumentRecord, now_ms
 
 __all__ = ["FileDocumentStore"]
 
-_MAGIC = b"GVDBTPU1"
+_MAGIC = b"GVDBZ001"
+# Every WAL starts with this; one written in another format is refused on
+# open, never truncated.
+_WAL_MAGIC = b"GVDBW001"
 _FRAME_HDR = struct.Struct("<I")
 
 
@@ -40,7 +45,7 @@ def _enc_record(rec: DocumentRecord) -> Dict[str, Any]:
     d = rec.to_dict()
     emb = d.pop("embedding", None)
     if emb is not None:
-        d["embedding_f32"] = np.asarray(emb, dtype=np.float32).tobytes()
+        d["embedding_f32"] = np.asarray(emb, dtype="<f4").tobytes()
     return d
 
 
@@ -48,17 +53,16 @@ def _dec_record(d: Dict[str, Any]) -> DocumentRecord:
     d = dict(d)
     raw = d.pop("embedding_f32", None)
     if raw is not None:
-        d["embedding"] = np.frombuffer(raw, dtype=np.float32).tolist()
+        d["embedding"] = np.frombuffer(raw, dtype="<f4").tolist()
     return DocumentRecord.from_dict(d)
 
 
 def write_backup_file(blob: bytes, backup_path: str, count: int) -> Dict[str, Any]:
     """Checksummed single-file backup, written atomically (storage.rs:500-576)."""
     checksum = hashlib.sha256(blob).hexdigest()
-    header = msgpack.packb(
-        {"version": 1, "created_at": now_ms(), "count": count, "checksum": checksum},
-        use_bin_type=True,
-    )
+    header = json.dumps(
+        {"version": 2, "created_at": now_ms(), "count": count,
+         "checksum": checksum}).encode()
     tmp = backup_path + ".tmp"
     os.makedirs(os.path.dirname(backup_path) or ".", exist_ok=True)
     with open(tmp, "wb") as f:
@@ -78,32 +82,29 @@ def read_backup_file(backup_path: str) -> Tuple[Dict[str, Any], bytes]:
     with open(backup_path, "rb") as f:
         data = f.read()
     (hlen,) = _FRAME_HDR.unpack_from(data, 0)
-    header = msgpack.unpackb(data[_FRAME_HDR.size:_FRAME_HDR.size + hlen], raw=False)
+    header = json.loads(data[_FRAME_HDR.size:_FRAME_HDR.size + hlen])
     blob = data[_FRAME_HDR.size + hlen:]
     if hashlib.sha256(blob).hexdigest() != header.get("checksum"):
         raise BackupError("backup checksum mismatch — refusing to restore")
     return header, blob
 
 
-def encode_store_payload(docs, kv, zc: "zstandard.ZstdCompressor" = None) -> bytes:
+def encode_store_payload(docs, kv, level: int = 3) -> bytes:
     """Shared snapshot/backup payload format — all backends must produce and
     consume the same bytes so their backups stay interchangeable."""
-    zc = zc or zstandard.ZstdCompressor(level=3)
     payload = {
         "docs": [_enc_record(r) for r in docs],
         "kv": dict(kv),
         "created_at": now_ms(),
     }
-    return _MAGIC + zc.compress(msgpack.packb(payload, use_bin_type=True))
+    return _MAGIC + codec.pack_compressed(payload, level)
 
 
 def decode_store_payload(blob: bytes):
     """Returns (docs dict, kv dict) from an encode_store_payload blob."""
     if blob[:8] != _MAGIC:
         raise SerializationError("bad snapshot magic")
-    payload = msgpack.unpackb(
-        zstandard.ZstdDecompressor().decompress(blob[8:]), raw=False
-    )
+    payload = codec.unpack_compressed(blob[8:])
     docs = {d["id"]: _dec_record(d) for d in payload["docs"]}
     return docs, dict(payload["kv"])
 
@@ -122,8 +123,7 @@ class FileDocumentStore(DocumentStore):
         self.data_dir = data_dir
         self.compact_wal_bytes = compact_wal_bytes
         self.sync_writes = sync_writes
-        self._zc = zstandard.ZstdCompressor(level=compression_level)
-        self._zd = zstandard.ZstdDecompressor()
+        self._level = compression_level
         self._lock = threading.RLock()
         self._docs: Dict[str, DocumentRecord] = {}
         self._kv: Dict[str, bytes] = {}
@@ -133,7 +133,7 @@ class FileDocumentStore(DocumentStore):
         self._snapshot_path = os.path.join(data_dir, "snapshot.gvdb")
         self._wal_path = os.path.join(data_dir, "wal.gvdb")
         self._load()
-        self._wal = open(self._wal_path, "ab")
+        self._wal = self._open_wal("ab")
         # Background flusher (the reference's sled 1s flush interval,
         # advanced_storage.rs:36-47). sync_writes=True fsyncs inline instead.
         self._stop_flusher = threading.Event()
@@ -161,23 +161,40 @@ class FileDocumentStore(DocumentStore):
         if os.path.exists(self._wal_path):
             with open(self._wal_path, "rb") as f:
                 data = f.read()
-            pos = 0
-            while pos + _FRAME_HDR.size <= len(data):
-                (ln,) = _FRAME_HDR.unpack_from(data, pos)
-                start = pos + _FRAME_HDR.size
-                if start + ln > len(data):
-                    break  # torn tail write — ignore (crash recovery)
-                try:
-                    op = msgpack.unpackb(data[start:start + ln], raw=False)
-                except Exception:
-                    break
-                self._apply_op(op)
-                pos = start + ln
+            if len(data) < len(_WAL_MAGIC) and _WAL_MAGIC.startswith(data):
+                pos = 0  # empty, or torn while writing the magic
+            elif data[:len(_WAL_MAGIC)] != _WAL_MAGIC:
+                # Another format (or another file): refuse, and leave it as
+                # it is — truncating it would drop acknowledged writes.
+                raise StorageError(
+                    f"{self._wal_path}: not a write-ahead log of this format")
+            else:
+                pos = self._replay(data)
             if pos < len(data):
                 # Truncate the torn tail: appending after unparseable bytes
                 # would make every later write unreadable on the next replay.
                 with open(self._wal_path, "r+b") as f:
                     f.truncate(pos)
+
+    def _replay(self, data: bytes) -> int:
+        """Apply the WAL's frames; returns where the complete frames end."""
+        pos = len(_WAL_MAGIC)
+        while pos + _FRAME_HDR.size <= len(data):
+            (ln,) = _FRAME_HDR.unpack_from(data, pos)
+            start = pos + _FRAME_HDR.size
+            if start + ln > len(data):
+                break  # torn tail write — ignore (crash recovery)
+            try:
+                op = codec.unpack(data[start:start + ln])
+            except Exception as e:
+                if not data[pos:].strip(b"\0"):
+                    break  # zero-filled tail left by a crash
+                raise StorageError(
+                    f"{self._wal_path}: undecodable record at byte {pos}"
+                ) from e
+            self._apply_op(op)
+            pos = start + ln
+        return pos
 
     def _apply_snapshot_blob(self, blob: bytes) -> None:
         self._docs, self._kv = decode_store_payload(blob)
@@ -201,8 +218,15 @@ class FileDocumentStore(DocumentStore):
 
     # -- WAL write -----------------------------------------------------------------
 
+    def _open_wal(self, mode: str):
+        f = open(self._wal_path, mode)
+        if f.tell() == 0:
+            f.write(_WAL_MAGIC)
+            f.flush()
+        return f
+
     def _append(self, op: List[Any]) -> None:
-        buf = msgpack.packb(op, use_bin_type=True)
+        buf = codec.pack(op)
         self._wal.write(_FRAME_HDR.pack(len(buf)))
         self._wal.write(buf)
         if self.sync_writes:
@@ -267,7 +291,8 @@ class FileDocumentStore(DocumentStore):
     # -- durability ----------------------------------------------------------------------
 
     def _snapshot_blob(self) -> bytes:
-        return encode_store_payload(self._docs.values(), self._kv, self._zc)
+        return encode_store_payload(self._docs.values(), self._kv,
+                                    self._level)
 
     def _compact_locked(self) -> None:
         blob = self._snapshot_blob()
@@ -278,7 +303,7 @@ class FileDocumentStore(DocumentStore):
             os.fsync(f.fileno())
         os.replace(tmp, self._snapshot_path)
         self._wal.close()
-        self._wal = open(self._wal_path, "wb")  # truncate
+        self._wal = self._open_wal("wb")  # truncate
 
     def compact(self) -> None:
         with self._lock:

@@ -2,13 +2,13 @@
 trait.
 
 The reference's entire storage layer is native (sled, a Rust embedded KV);
-this is the TPU framework's native equivalent: ``native/gvdb_store.cpp``
+this is the framework's native equivalent: ``native/gvdb_store.cpp``
 (append-only checksummed segment log + in-memory hash index, crash-safe torn-
 tail truncation, compaction) exposed over a C ABI and bound with ctypes
 (pybind11 is not in this image).
 
-``NativeDocumentStore`` stores msgpack-encoded DocumentRecords (embeddings as
-raw f32 bytes) under ``d:{id}`` keys and generic KV under ``k:{key}`` — the
+``NativeDocumentStore`` stores codec-encoded DocumentRecords
+(storage/codec.py; embeddings as raw f32 bytes) under ``d:{id}`` keys and generic KV under ``k:{key}`` — the
 same two namespaces the Python FileDocumentStore keeps, so the two backends
 are interchangeable behind VectorDatabase.
 
@@ -23,9 +23,8 @@ import subprocess
 import threading
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
-import msgpack
-
 from grape_vector_db_tpu.errors import StorageError
+from grape_vector_db_tpu.storage import codec
 from grape_vector_db_tpu.storage.file import (
     _dec_record,
     _enc_record,
@@ -190,14 +189,14 @@ class NativeDocumentStore(DocumentStore):
     def batch_insert(self, records: Sequence[DocumentRecord]) -> None:
         for r in records:
             self.kv.put(b"d:" + r.id.encode(),
-                        msgpack.packb(_enc_record(r), use_bin_type=True))
+                        codec.pack(_enc_record(r)))
         self._maybe_compact()
 
     def get(self, id_: str) -> Optional[DocumentRecord]:
         raw = self.kv.get(b"d:" + id_.encode())
         if raw is None:
             return None
-        return _dec_record(msgpack.unpackb(raw, raw=False))
+        return _dec_record(codec.unpack(raw))
 
     def batch_delete(self, ids: Sequence[str]) -> int:
         n = 0

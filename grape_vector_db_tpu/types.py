@@ -1,4 +1,4 @@
-"""Core schema / DTO module of the TPU-native vector database.
+"""Core schema / DTO module of the vector database.
 
 This is the equivalent of the reference's ``src/types.rs`` (types.rs:5-536): the
 `Point` / `Document` / `SparseVector` data model, search request/response types,

@@ -1,6 +1,6 @@
 // gvdb_store — native append-only segment-log KV store with hash index.
 //
-// The TPU framework's native storage engine: the role sled (embedded LSM KV)
+// The framework's native storage engine: the role sled (embedded LSM KV)
 // plays in the reference (storage.rs/advanced_storage.rs) — durable payload
 // and metadata storage under the host-side document store. Design:
 //

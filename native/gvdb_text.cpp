@@ -219,9 +219,8 @@ int32_t gvdb_tokenize_batch(const char* texts, const int32_t* offsets,
 // ---------------------------------------------------------------------------
 // gvdb_hash_features — native hot loop for services/device_embedder.py.
 //
-// The Python featurizer (_features) measured ~5.7 ms/text (pure-Python char
-// n-gram loop + zlib.crc32 per feature): embedding-at-ingest ran at ~175
-// texts/s. This reproduces it EXACTLY for ASCII text: SimpleTokenizer ASCII
+// The Python featurizer (_features) is a pure-Python char n-gram loop with
+// a zlib.crc32 per feature, which caps embedding-at-ingest. This reproduces it EXACTLY for ASCII text: SimpleTokenizer ASCII
 // semantics (same loop as above), features = token + char n-grams of
 // "<token>" for n in [lo_n, hi_n], key = crc32(feat + salt) % buckets with
 // the sign bit from crc32("#" + feat + salt) & 1 (signed-key encoding:

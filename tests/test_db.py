@@ -646,10 +646,9 @@ def test_tune_dispatch():
 
 
 def test_tune_hard_held_out_queries(rng):
-    """Hard-query tuning (VERDICT r3 item 3): the self-recall protocol is
-    the EASY bound — corpus-drawn queries' neighbors concentrate in their
-    own list, so it can pick nprobe=1 where held-out queries need more
-    (measured at 16.78M: self said nprobe=1, held-out recall was 0.27).
+    """Hard-query tuning: the self-recall protocol is the EASY bound —
+    corpus-drawn queries' neighbors concentrate in their own list, so it
+    can pick nprobe=1 where held-out queries need far more.
     tune(hard=True) sweeps nprobe x host_rescore against an exhaustive-probe
     + exact-rescore oracle on synthesized held-out queries and pins BOTH
     knobs."""

@@ -1,8 +1,8 @@
-"""DeviceHashEmbedder: the TPU-native local text embedder.
+"""DeviceHashEmbedder: the device-native local text embedder.
 
 The reference's only offline provider is the mock (embeddings.rs:222-266),
 whose vectors carry no similarity structure. The device embedder (signed
-feature hashing + seeded MXU projection) must be deterministic AND give
+feature hashing + seeded matmul projection) must be deterministic AND give
 lexically-similar texts similar vectors — that's what makes text-only
 ingestion produce a usable dense channel without a network dependency.
 """

@@ -1,5 +1,5 @@
-"""Every example must run under the CPU platform (VERDICT r1 item 8: examples
-are the documented user surface — they run in CI, not just in the README)."""
+"""Every example must run under the CPU platform (examples are the
+documented user surface — they run in CI, not just in the README)."""
 
 import importlib.util
 import os

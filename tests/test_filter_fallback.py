@@ -1,9 +1,9 @@
 """Selectivity-aware filtered search on probe-based indexes.
 
 An IVF probe visits nprobe lists, so a mask folded into it is exact only
-over the probed lists — measured on-chip at the 16.78M int4 tier: recall
-0.13-0.14 vs the masked oracle at 1% selectivity (bench/SWEEP_INT4.jsonl
-``int4_16M_masked``). These tests pin the two exact fallbacks:
+over the probed lists: at low selectivity most allowed rows sit in
+unprobed lists and recall against the masked oracle collapses. These tests
+pin the two exact fallbacks:
 
 - ``search_batch(..., exhaustive=True)``: the exhaustive masked scan
   (ops/ivf_scan.py — one streaming corpus pass to a per-list masked max,
@@ -59,26 +59,28 @@ def _oracle_ids(vectors, allowed_rows, query, k):
 
 
 def _build(kind, dim, n):
+    """IVF index of ``kind`` routed through the probe kernel (the tests that
+    build one ask for the interpret_kernels fixture)."""
     if kind == "ivf":
         from grape_vector_db_tpu.index.ivf import IvfDeviceIndex
-        return IvfDeviceIndex(dim, nlist=8, nprobe=1,
-                              initial_capacity=n, use_pallas="force")
-    if kind == "ivf_int8":
+        idx = IvfDeviceIndex(dim, nlist=8, nprobe=1, initial_capacity=n)
+    elif kind == "ivf_int8":
         from grape_vector_db_tpu.index.ivf_int8 import Int8IvfDeviceIndex
-        return Int8IvfDeviceIndex(dim, nlist=8, nprobe=1,
-                                  initial_capacity=n, use_pallas="force")
-    if kind == "ivf_int4":
+        idx = Int8IvfDeviceIndex(dim, nlist=8, nprobe=1, initial_capacity=n)
+    elif kind == "ivf_int4":
         from grape_vector_db_tpu.index.ivf_int4 import Int4IvfDeviceIndex
-        return Int4IvfDeviceIndex(dim, nlist=8, nprobe=1,
-                                  initial_capacity=n, use_pallas="force")
-    from grape_vector_db_tpu.index.ivf_proj import ProjectedInt8IvfIndex
-    return ProjectedInt8IvfIndex(dim, proj_dim=128, nlist=8, nprobe=1,
-                                 initial_capacity=n, min_energy=0.0,
-                                 use_pallas="force")
+        idx = Int4IvfDeviceIndex(dim, nlist=8, nprobe=1, initial_capacity=n)
+    else:
+        from grape_vector_db_tpu.index.ivf_proj import ProjectedInt8IvfIndex
+        idx = ProjectedInt8IvfIndex(dim, proj_dim=128, nlist=8, nprobe=1,
+                                    initial_capacity=n, min_energy=0.0)
+    idx._use_kernel = True
+    return idx
 
 
 @pytest.mark.parametrize("kind", ["ivf", "ivf_int8", "ivf_int4", "ivf_proj"])
-def test_exhaustive_masked_scan_exact_where_probe_misses(kind):
+def test_exhaustive_masked_scan_exact_where_probe_misses(kind,
+                                                         interpret_kernels):
     rng = np.random.default_rng(11)
     # proj_dim must be 128-aligned and < dim (ivf_proj.py:76) — give the
     # projected case a 256-d corpus so the engine runs at R=128
@@ -99,7 +101,7 @@ def test_exhaustive_masked_scan_exact_where_probe_misses(kind):
                                     exhaustive=True)[0]
 
     # the nprobe=1 masked probe cannot reach the allowed rows (they live in
-    # unprobed lists) — this is the measured failure mode being fixed
+    # unprobed lists) — this is the failure mode being fixed
     want = _oracle_ids(vectors, allowed_rows, query, k)
     probe_ids = [h[0] for h in probe_hits]
     assert set(probe_ids) != set(want), "probe unexpectedly exact — the " \
@@ -152,7 +154,7 @@ def test_sharded_exhaustive_masked_scan_exact(kind):
     assert got == want, (kind, got, want)
 
 
-def test_exhaustive_matches_probe_at_high_selectivity():
+def test_exhaustive_matches_probe_at_high_selectivity(interpret_kernels):
     """At 50% selectivity both paths see the same lists — same answer
     (the exhaustive scan is a strict superset of the probe's coverage)."""
     from grape_vector_db_tpu.index.ivf import IvfDeviceIndex
@@ -162,7 +164,8 @@ def test_exhaustive_matches_probe_at_high_selectivity():
     allowed_ids = {f"r{i}" for i in rng.choice(
         len(ids), len(ids) // 2, replace=False)}
     idx = IvfDeviceIndex(vectors.shape[1], nlist=8, nprobe=8,
-                         initial_capacity=len(ids), use_pallas="force")
+                         initial_capacity=len(ids))
+    idx._use_kernel = True
     idx.add_batch(ids, vectors)
     with idx.locked():
         mask = idx.compile_mask(allowed_ids)
@@ -284,7 +287,7 @@ def test_planner_exhaustive_tier_routes_on_selectivity(kind):
 
 
 @pytest.mark.parametrize("kind", ["ivf", "ivf_int8", "ivf_int4", "ivf_proj"])
-def test_compact_tier_matches_streaming_scan(kind):
+def test_compact_tier_matches_streaming_scan(kind, interpret_kernels):
     """The compact tier (gather allowed rows, scan those) and the streaming
     exhaustive scan are the same exactness contract at different cost
     models — they must return the same hits. Forcing
@@ -338,7 +341,7 @@ def test_compact_chunked_merge_matches_single_shot(fmt):
         data = jnp.asarray(rng.integers(-128, 128, (l, c, d // 2)), jnp.int8)
     w = rng.uniform(0.5, 1.5, (l, c)).astype(np.float32)
     w[rng.random((l, c)) < 0.2] = 0.0  # some invalid cells
-    plane = jnp.asarray(np.broadcast_to(w[:, None, :], (l, 8, c)).copy())
+    plane = jnp.asarray(w)
     q = jnp.asarray(rng.standard_normal((b, d)), jnp.float32)
 
     r = 256
@@ -399,9 +402,9 @@ def test_sharded_compact_tier_matches_streaming(kind):
     assert got_c == got_s, (kind, got_c, got_s)
 
 
-def test_compact_cache_repeat_and_invalidation():
+def test_compact_cache_repeat_and_invalidation(interpret_kernels):
     """The compact tier caches the gathered block per filter (the gather
-    is ~75% of its cost and production filters repeat). A repeat search
+    is most of its cost and production filters repeat). A repeat search
     must serve from cache with identical results; any mutation (here: a
     delete of an allowed row) must invalidate it — serving stale gathered
     rows would resurrect deleted documents."""

@@ -13,13 +13,13 @@ from grape_vector_db_tpu.types import Condition, Filter
 def engine():
     e = FilterEngine()
     docs = {
-        "d1": {"category": "tech", "price": 10, "tags": ["gpu", "tpu"],
-               "loc": {"lat": 37.77, "lon": -122.42}, "title": "TPU guide"},
+        "d1": {"category": "tech", "price": 10, "tags": ["gpu", "npu"],
+               "loc": {"lat": 37.77, "lon": -122.42}, "title": "NPU guide"},
         "d2": {"category": "tech", "price": 50, "tags": ["cpu"],
                "loc": {"lat": 40.71, "lon": -74.00}, "title": "CPU handbook"},
         "d3": {"category": "food", "price": 5, "nested": {"a": {"b": 7}},
                "title": "Pasta recipes"},
-        "d4": {"category": "food", "price": 20, "tags": ["pasta", "tpu"]},
+        "d4": {"category": "food", "price": 20, "tags": ["pasta", "npu"]},
     }
     for i, m in docs.items():
         e.index_document(i, m)
@@ -52,7 +52,7 @@ def test_like_and_text_match(engine):
 def test_exists_null_array(engine):
     assert q(engine, Condition("tags", "exists")) == {"d1", "d2", "d4"}
     assert q(engine, Condition("tags", "is_null")) == {"d3"}
-    assert q(engine, Condition("tags", "array_contains", "tpu")) == {"d1", "d4"}
+    assert q(engine, Condition("tags", "array_contains", "npu")) == {"d1", "d4"}
 
 
 def test_nested_paths(engine):
@@ -217,8 +217,7 @@ def _masked_oracle(vectors, allowed_rows, query, k):
 
 
 def test_masked_search_exact_under_selective_filter():
-    """VERDICT r1 item 3 'done' criterion: a ~0.1%-selective filter returns
-    exactly the oracle's top-k. The allowed rows are engineered to rank BELOW
+    """A ~0.1%-selective filter returns exactly the oracle's top-k. The allowed rows are engineered to rank BELOW
     every over-fetch horizon (all other rows score higher), so the old
     over-fetch + host post-filter path provably cannot find them."""
     from grape_vector_db_tpu.index.flat import FlatDeviceIndex

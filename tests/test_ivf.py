@@ -214,22 +214,22 @@ def test_ivf_pq_delete_and_db_mode(rng):
     assert all(h.id != "d123" for h in hits)
 
 
-def test_ivf_pallas_probe_interpret_path(rng):
-    """The production Pallas DMA probe (forced through the interpreter on
-    CPU): recall parity with the XLA probe, recip-plane maintenance across
-    upsert/delete, and fallback to XLA under a mask."""
+def test_ivf_pallas_probe_interpret_path(rng, interpret_kernels):
+    """The probe kernel behind the index (interpret mode on the CPU): same
+    ids as the XLA probe, recip-plane maintenance across upsert/delete, and
+    masks folded after the kernel."""
     from grape_vector_db_tpu.index.ivf import IvfDeviceIndex
 
     dim, n, k = 32, 1200, 5
     vecs = rng.standard_normal((n, dim)).astype(np.float32)
     ids = [f"d{i}" for i in range(n)]
-    a = IvfDeviceIndex(dim, storage_dtype="float32", nlist=8, nprobe=8,
-                       use_pallas="force")
-    b = IvfDeviceIndex(dim, storage_dtype="float32", nlist=8, nprobe=8,
-                       use_pallas=False)
+    a = IvfDeviceIndex(dim, storage_dtype="float32", nlist=8, nprobe=8)
+    b = IvfDeviceIndex(dim, storage_dtype="float32", nlist=8, nprobe=8)
+    assert not a._use_kernel  # the CPU routes to the XLA probe
+    a._use_kernel = True
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
-    assert a._use_pallas and a.recip is not None
+    assert a.recip is not None and a.recip.shape == (8, a.list_cap)
     assert a.list_cap % 128 == 0
 
     queries = vecs[:6] + 0.01 * rng.standard_normal((6, dim)).astype(np.float32)
@@ -245,14 +245,14 @@ def test_ivf_pallas_probe_interpret_path(rng):
     a.add_batch(["d3"], vecs[3:4])
     assert a.search_batch(vecs[3:4], 1)[0][0][0] == "d3"
 
-    # masked search stays on the Pallas probe (mask folds into the
+    # masked search stays on the kernel (the mask folds into the
     # post-kernel selection) and matches the masked XLA path exactly
     allowed = {"d1", "d5", "d9"}
     got = a.search_batch(queries[:1], 3, mask=a.compile_mask(allowed))[0]
     assert {h[0] for h in got} == allowed
     got_xla = b.search_batch(queries[:1], 3, mask=b.compile_mask(allowed))[0]
     assert [h[0] for h in got] == [h[0] for h in got_xla]
-    # a wide mask too: pallas+mask == xla+mask on every query
+    # a wide mask too: kernel+mask == xla+mask on every query
     wide = {f"d{i}" for i in range(0, n, 3)}
     ma, mb = a.compile_mask(wide), b.compile_mask(wide)
     for ra, rb in zip(a.search_batch(queries, k, mask=ma),
@@ -260,8 +260,8 @@ def test_ivf_pallas_probe_interpret_path(rng):
         assert [x[0] for x in ra] == [x[0] for x in rb]
 
 
-def test_ivf_dot_metric_pallas_parity(rng):
-    """metric="dot" through the (interpreted) Pallas probe must rank by raw
+def test_ivf_dot_metric_pallas_parity(rng, interpret_kernels):
+    """metric="dot" through the (interpreted) probe kernel must rank by raw
     dots like the XLA probe (regression: the recip plane divided by norm
     unconditionally, returning cosine ranking)."""
     from grape_vector_db_tpu.index.ivf import IvfDeviceIndex
@@ -271,9 +271,10 @@ def test_ivf_dot_metric_pallas_parity(rng):
             * rng.uniform(0.2, 5.0, (n, 1)).astype(np.float32))
     ids = [f"d{i}" for i in range(n)]
     a = IvfDeviceIndex(dim, metric="dot", storage_dtype="float32",
-                       nlist=8, nprobe=8, use_pallas="force")
+                       nlist=8, nprobe=8)
+    a._use_kernel = True
     b = IvfDeviceIndex(dim, metric="dot", storage_dtype="float32",
-                       nlist=8, nprobe=8, use_pallas=False)
+                       nlist=8, nprobe=8)
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
     q = vecs[:6]
@@ -284,13 +285,13 @@ def test_ivf_dot_metric_pallas_parity(rng):
 
 
 def test_ivf_optimize_keeps_pallas_alignment(rng):
-    """optimize() regrows list capacity in 128 multiples so the Pallas probe
-    stays legal after a repack (regression: regrow used base=64)."""
+    """optimize() regrows list capacity in 128 multiples, so capacities stay
+    on few bucket sizes and the probe kernel's 64-row blocks stay whole
+    after a repack (regression: regrow used base=64)."""
     from grape_vector_db_tpu.index.ivf import IvfDeviceIndex
 
     dim = 32
-    idx = IvfDeviceIndex(dim, nlist=4, nprobe=4, use_pallas="force",
-                         initial_capacity=512)
+    idx = IvfDeviceIndex(dim, nlist=4, nprobe=4, initial_capacity=512)
     # skewed data: one heavy cluster forces a capacity regrow on optimize()
     heavy = rng.standard_normal((1, dim)).astype(np.float32) * 5
     rows = np.concatenate([
@@ -314,8 +315,7 @@ def test_tune_nprobe_meets_recall_target(rng):
     centers = rng.standard_normal((16, dim)).astype(np.float32) * 4
     vecs = (centers[rng.integers(0, 16, n)]
             + 0.2 * rng.standard_normal((n, dim)).astype(np.float32))
-    idx = IvfDeviceIndex(dim, storage_dtype="float32", nlist=16, nprobe=16,
-                         use_pallas=False)
+    idx = IvfDeviceIndex(dim, storage_dtype="float32", nlist=16, nprobe=16)
     idx.add_batch([f"d{i}" for i in range(n)], vecs)
 
     chosen = idx.tune_nprobe(k=5, target_recall=0.9)
@@ -427,8 +427,8 @@ def test_kmeans_chunked_matches_unchunked(rng):
 def test_ivf_train_large_nlist_chunks_the_assignment_plane(monkeypatch, rng):
     """train() must route large sample x nlist products through chunked
     k-means: the unchunked form materializes an [N, nlist] plane that OOMs
-    a chip whose storage planes are already resident (the 16.78M cap16m
-    layout trains at nlist=16384). Guard: > 2^26 assignment cells."""
+    a device whose storage planes are already resident (a 16M-row layout
+    trains at nlist=16384). Guard: > 2^26 assignment cells."""
     import grape_vector_db_tpu.index.ivf as ivf_mod
 
     seen = {}
@@ -440,7 +440,7 @@ def test_ivf_train_large_nlist_chunks_the_assignment_plane(monkeypatch, rng):
 
     monkeypatch.setattr(ivf_mod, "kmeans", spy)
     idx = ivf_mod.IvfDeviceIndex(dimension=8, nlist=256, train_size=400_000,
-                                 kmeans_iters=1, use_pallas=False)
+                                 kmeans_iters=1)
     sample = rng.standard_normal((300_000, 8)).astype(np.float32)
     idx.train(sample)
     assert seen["chunk"] is not None
@@ -448,6 +448,6 @@ def test_ivf_train_large_nlist_chunks_the_assignment_plane(monkeypatch, rng):
     # small samples keep the unchunked fast path
     seen.clear()
     idx2 = ivf_mod.IvfDeviceIndex(dimension=8, nlist=16, train_size=50_000,
-                                  kmeans_iters=1, use_pallas=False)
+                                  kmeans_iters=1)
     idx2.train(rng.standard_normal((2_048, 8)).astype(np.float32))
     assert seen["chunk"] is None

@@ -3,7 +3,7 @@ the bandwidth/capacity ladder).
 
 Covers the quantization/packing scheme itself (split-plane round-trip),
 both index configurations (bf16 shadow w/ exact rescore, int4-only
-capacity), the Pallas interpret path vs the XLA fallback, masked search,
+capacity), the probe kernel (interpret mode) vs the XLA probe, masked search,
 mutation, and the DB factory wiring.
 """
 
@@ -60,10 +60,10 @@ def test_int4_ivf_matches_bf16_ivf(rng):
     vecs = clustered(rng, n, dim)
     ids = [f"d{i}" for i in range(n)]
     a = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8, rescore=128)
-    b = IvfDeviceIndex(dim, nlist=8, nprobe=8, use_pallas=False)
+    b = IvfDeviceIndex(dim, nlist=8, nprobe=8)
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
-    assert not a._use_pallas  # CPU default: XLA fallback path
+    assert not a._use_kernel  # CPU default: XLA probe
     assert a.codes.dtype == np.int8 and a.codes.shape[-1] == dim // 2
 
     q = vecs[:8] + 0.01 * rng.standard_normal((8, dim)).astype(np.float32)
@@ -76,17 +76,18 @@ def test_int4_ivf_matches_bf16_ivf(rng):
         assert row[0][0] == f"d{i}"
 
 
-def test_int4_ivf_pallas_interpret_matches_xla(rng):
-    """The production Pallas int4 DMA probe (interpreted on CPU) returns the
-    same ids as the XLA fallback, masked and unmasked."""
+def test_int4_ivf_pallas_interpret_matches_xla(rng, interpret_kernels):
+    """The int4 probe kernel behind the index (interpreted on the CPU)
+    returns the same ids as the XLA probe, masked and unmasked."""
     dim, n, k = 32, 1200, 5
     vecs = clustered(rng, n, dim)
     ids = [f"d{i}" for i in range(n)]
-    a = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8, use_pallas="force")
-    b = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8, use_pallas=False)
+    a = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8)
+    b = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8)
+    a._use_kernel = True
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
-    assert a._use_pallas and a.list_cap % 128 == 0
+    assert a.factor.shape == (8, a.list_cap)
 
     q = vecs[:6] + 0.01 * rng.standard_normal((6, dim)).astype(np.float32)
     for ra, rb in zip(a.search_batch(q, k), b.search_batch(q, k)):
@@ -141,15 +142,14 @@ def test_int4_ivf_capacity_config(rng):
     assert {h[0] for h in got} == allowed
 
 
-def test_int4_ivf_capacity_pallas_interpret(rng):
-    """Capacity config through the interpreted Pallas kernel (rescore=0)."""
+def test_int4_ivf_capacity_pallas_interpret(rng, interpret_kernels):
+    """Capacity config through the interpreted probe kernel (rescore=0)."""
     dim, n = 32, 900
     vecs = clustered(rng, n, dim)
     ids = [f"d{i}" for i in range(n)]
-    a = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False,
-                           use_pallas="force")
-    b = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False,
-                           use_pallas=False)
+    a = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False)
+    a._use_kernel = True
+    b = Int4IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False)
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
     q = vecs[:4]
@@ -157,15 +157,14 @@ def test_int4_ivf_capacity_pallas_interpret(rng):
         assert ids_of(ra) == ids_of(rb)
 
 
-def test_int4_ivf_dot_metric_parity(rng):
+def test_int4_ivf_dot_metric_parity(rng, interpret_kernels):
     """metric="dot" must rank by raw dot products on every path."""
     dim, n, k = 32, 900, 5
     vecs = clustered(rng, n, dim) * rng.uniform(0.2, 5.0, (n, 1)).astype(np.float32)
     ids = [f"d{i}" for i in range(n)]
-    a = Int4IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8,
-                           use_pallas="force")
-    b = Int4IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8,
-                           use_pallas=False)
+    a = Int4IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8)
+    a._use_kernel = True
+    b = Int4IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8)
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
     q = vecs[:6]
@@ -245,60 +244,3 @@ def test_projected_int4_ivf_end_to_end(rng):
     idx.optimize()
     assert len(idx) == n
     assert idx.search_batch(base[9:10], 1)[0][0][0] == "d9"
-
-
-def test_probe_scores_chunked_matches_direct(rng, monkeypatch):
-    """VMEM-budget chunking of the probe-scores P axis (the r5 OOM: the
-    exhaustive scan at fetch=64 over the 16.78M layout asked for a 69.7 MB
-    scores plane against the 16 MB scoped limit) must return byte-identical
-    scores to the single-call form, for all three formats."""
-    import jax.numpy as jnp
-
-    from grape_vector_db_tpu.ops import ivf_pallas as ip
-    from grape_vector_db_tpu.ops.int4 import quantize_int4
-    from grape_vector_db_tpu.ops.int8 import quantize_int8
-
-    b, p, l, c, d = 4, 6, 8, 16, 32
-    q = rng.standard_normal((b, d)).astype(np.float32)
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    probe = rng.integers(0, l, (b, p)).astype(np.int32)
-    vecs = rng.standard_normal((l, c, d)).astype(np.float32)
-    norms = np.linalg.norm(vecs, axis=2)
-    valid = rng.random((l, c)) < 0.9
-    recip = np.where(valid, 1.0 / np.maximum(norms, 1e-12), 0.0)
-    recip8 = np.broadcast_to(recip[:, None, :], (l, 8, c)).copy()
-
-    vi8, s8 = quantize_int8(jnp.asarray(vecs.reshape(-1, d)))
-    codes8 = jnp.asarray(vi8).reshape(l, c, d)
-    f8 = np.where(valid, np.asarray(s8).reshape(l, c)
-                  / np.maximum(norms, 1e-12), 0.0)
-    f8 = jnp.asarray(np.broadcast_to(f8[:, None, :], (l, 8, c)).copy())
-    vi4, s4 = quantize_int4(jnp.asarray(vecs.reshape(-1, d)))
-    codes4 = jnp.asarray(vi4).reshape(l, c, d // 2)
-    f4 = np.where(valid, np.asarray(s4).reshape(l, c)
-                  / np.maximum(norms, 1e-12), 0.0)
-    f4 = jnp.asarray(np.broadcast_to(f4[:, None, :], (l, 8, c)).copy())
-
-    cases = [
-        ("bf16", ip.ivf_probe_scores, jnp.asarray(vecs, jnp.bfloat16),
-         jnp.asarray(recip8)),
-        ("int8", ip.ivf_probe_scores_int8, codes8, f8),
-        ("int4", ip.ivf_probe_scores_int4, codes4, f4),
-    ]
-    for fmt, fn, data, plane in cases:
-        # go through __wrapped__ so each call re-traces (the jit cache would
-        # otherwise return the first trace and make the equality vacuous);
-        # the chunk branch's nested calls still hit the jitted module name.
-        raw = fn.__wrapped__
-        direct = np.asarray(raw(jnp.asarray(q), jnp.asarray(probe), data,
-                                plane, interpret=True))
-        # budget of 2*b*c cells -> p_sub = 2 -> 3 chunks of 2
-        monkeypatch.setitem(ip._PROBE_OUT_BUDGET, fmt, 2 * b * c)
-        assert ip._probe_p_chunks(b, p, c, 2 * b * c) == [(0, 2), (2, 4),
-                                                          (4, 6)]
-        chunked = np.asarray(raw(jnp.asarray(q), jnp.asarray(probe), data,
-                                 plane, interpret=True))
-        np.testing.assert_array_equal(direct, chunked, err_msg=fmt)
-    # even-split preference: 64 lists at p_sub 10 -> 8 even chunks of 8
-    assert ip._probe_p_chunks(128, 64, 2176, 3_000_000) == [
-        (i, i + 8) for i in range(0, 64, 8)]

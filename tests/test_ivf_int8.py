@@ -1,7 +1,7 @@
 """Int8IvfDeviceIndex — int8-resident IVF lists (bandwidth + capacity play).
 
 Covers both configurations (bf16 shadow w/ exact rescore, int8-only
-capacity), the Pallas interpret path vs the XLA fallback, masked search,
+capacity), the probe kernel (interpret mode) vs the XLA probe, masked search,
 mutation (upsert/delete/optimize), and the DB factory wiring.
 """
 
@@ -34,10 +34,10 @@ def test_int8_ivf_matches_bf16_ivf(rng):
     vecs = clustered(rng, n, dim)
     ids = [f"d{i}" for i in range(n)]
     a = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8, rescore=64)
-    b = IvfDeviceIndex(dim, nlist=8, nprobe=8, use_pallas=False)
+    b = IvfDeviceIndex(dim, nlist=8, nprobe=8)
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
-    assert not a._use_pallas  # CPU default: XLA fallback path
+    assert not a._use_kernel  # CPU default: XLA probe
 
     q = vecs[:8] + 0.01 * rng.standard_normal((8, dim)).astype(np.float32)
     ha, hb = a.search_batch(q, k), b.search_batch(q, k)
@@ -49,17 +49,18 @@ def test_int8_ivf_matches_bf16_ivf(rng):
         assert row[0][0] == f"d{i}"
 
 
-def test_int8_ivf_pallas_interpret_matches_xla(rng):
-    """The production Pallas int8 DMA probe (interpreted on CPU) returns the
-    same ids as the XLA fallback, masked and unmasked."""
+def test_int8_ivf_pallas_interpret_matches_xla(rng, interpret_kernels):
+    """The int8 probe kernel behind the index (interpreted on the CPU)
+    returns the same ids as the XLA probe, masked and unmasked."""
     dim, n, k = 32, 1200, 5
     vecs = clustered(rng, n, dim)
     ids = [f"d{i}" for i in range(n)]
-    a = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8, use_pallas="force")
-    b = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8, use_pallas=False)
+    a = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8)
+    b = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8)
+    a._use_kernel = True
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
-    assert a._use_pallas and a.list_cap % 128 == 0
+    assert a.factor.shape == (8, a.list_cap)
 
     q = vecs[:6] + 0.01 * rng.standard_normal((6, dim)).astype(np.float32)
     for ra, rb in zip(a.search_batch(q, k), b.search_batch(q, k)):
@@ -110,15 +111,14 @@ def test_int8_ivf_capacity_config(rng):
     assert {h[0] for h in got} == allowed
 
 
-def test_int8_ivf_capacity_pallas_interpret(rng):
-    """Capacity config through the interpreted Pallas kernel (rescore=0)."""
+def test_int8_ivf_capacity_pallas_interpret(rng, interpret_kernels):
+    """Capacity config through the interpreted probe kernel (rescore=0)."""
     dim, n = 32, 900
     vecs = clustered(rng, n, dim)
     ids = [f"d{i}" for i in range(n)]
-    a = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False,
-                           use_pallas="force")
-    b = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False,
-                           use_pallas=False)
+    a = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False)
+    a._use_kernel = True
+    b = Int8IvfDeviceIndex(dim, nlist=8, nprobe=8, keep_bf16=False)
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
     q = vecs[:4]
@@ -150,17 +150,16 @@ def test_int8_ivf_via_db_factory(rng):
     assert all(h.id != "v123" for h in hits)
 
 
-def test_int8_ivf_dot_metric_parity(rng):
+def test_int8_ivf_dot_metric_parity(rng, interpret_kernels):
     """metric="dot" must rank by raw dot products on every path (regression:
     the rescore divided by the corpus norm, silently returning cosine)."""
     dim, n, k = 32, 900, 5
     # vary norms wildly so dot and cosine order differently
     vecs = clustered(rng, n, dim) * rng.uniform(0.2, 5.0, (n, 1)).astype(np.float32)
     ids = [f"d{i}" for i in range(n)]
-    a = Int8IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8,
-                           use_pallas="force")
-    b = Int8IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8,
-                           use_pallas=False)
+    a = Int8IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8)
+    a._use_kernel = True
+    b = Int8IvfDeviceIndex(dim, metric="dot", nlist=8, nprobe=8)
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
     q = vecs[:6]
@@ -181,8 +180,7 @@ def test_int8_ivf_rescore_ignores_deleted(rng):
     dim, n, k = 32, 600, 5
     vecs = clustered(rng, n, dim, centers=4)
     ids = [f"d{i}" for i in range(n)]
-    idx = Int8IvfDeviceIndex(dim, nlist=4, nprobe=4, rescore=256,
-                             use_pallas=False)
+    idx = Int8IvfDeviceIndex(dim, nlist=4, nprobe=4, rescore=256)
     idx.add_batch(ids, vecs)
     # delete most of the corpus so the rescore set must include tombstones
     dead = [f"d{i}" for i in range(0, n, 2)]
@@ -193,7 +191,7 @@ def test_int8_ivf_rescore_ignores_deleted(rng):
 
 
 def test_projected_int8_ivf_end_to_end(rng):
-    """PCA-projected int8 IVF (the MXU capacity tier): recall, delete,
+    """PCA-projected int8 IVF (the matmul capacity tier): recall, delete,
     persistence round-trip and optimize() refit at proj_dim = dim/2."""
     from grape_vector_db_tpu.index.ivf_proj import ProjectedInt8IvfIndex
     from grape_vector_db_tpu.index.flat import FlatDeviceIndex

@@ -1,6 +1,11 @@
 """THE deployment test: a 3-node cluster as three OS processes talking over
 real gRPC sockets — `cli serve --node-id --peers` end to end (the topology the
-reference's stubs never reached)."""
+reference's stubs never reached).
+
+The members run on the CPU here. On GPUs the cluster runs one process per
+card; members that share one card must each get a share of its memory
+through ``XLA_PYTHON_CLIENT_MEM_FRACTION`` (a JAX process reserves most of
+the card when it starts)."""
 
 import os
 import socket

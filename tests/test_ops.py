@@ -120,28 +120,6 @@ def test_hamming_topk(rng):
     assert (np.diff(dists, axis=1) >= 0).all()
 
 
-def test_hamming_pallas_kernel_matches_xla(rng):
-    """Pallas kernel (interpret mode on CPU) must agree exactly with the XLA
-    broadcast implementation."""
-    d = 96
-    a = rng.standard_normal((8, d)).astype(np.float32)
-    b = rng.standard_normal((1024, d)).astype(np.float32)
-    ca, cb = pack_bits(jnp.asarray(a), 0.0), pack_bits(jnp.asarray(b), 0.0)
-    ref = np.asarray(hamming_scores(ca, cb, impl="xla"))
-    got = np.asarray(hamming_scores(ca, cb, impl="pallas_interpret"))
-    np.testing.assert_array_equal(got, ref)
-
-
-def test_hamming_pallas_non_multiple_block_falls_back(rng):
-    d = 64
-    a = rng.standard_normal((4, d)).astype(np.float32)
-    b = rng.standard_normal((100, d)).astype(np.float32)  # not % 512
-    ca, cb = pack_bits(jnp.asarray(a), 0.0), pack_bits(jnp.asarray(b), 0.0)
-    ref = np.asarray(hamming_scores(ca, cb, impl="xla"))
-    got = np.asarray(hamming_scores(ca, cb, impl="pallas_interpret"))
-    np.testing.assert_array_equal(got, ref)  # silently used the fallback
-
-
 def test_verified_exact_topk_adversarial(rng):
     """The verified-exact path must stay exact on near-tie data (where
     approx_max_k alone would drop entries)."""
@@ -163,55 +141,6 @@ def test_verified_exact_topk_adversarial(rng):
     np.testing.assert_allclose(
         np.take_along_axis(scores, idxs, axis=1), vals, rtol=0, atol=0
     )
-
-
-def test_gather_dots_pallas_matches_xla(rng):
-    """DMA-gather kernel (interpret mode on CPU) vs the XLA gather+einsum."""
-    from grape_vector_db_tpu.ops.gather_pallas import gather_dots
-
-    n, d, b, c = 300, 128, 8, 24
-    vecs = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
-    q = jnp.asarray(rng.standard_normal((b, d)).astype(np.float32))
-    ids = jnp.asarray(rng.integers(0, n, (b, c)).astype(np.int32))
-    ref = np.asarray(gather_dots(q, vecs, ids, impl="xla"))
-    got = np.asarray(gather_dots(q, vecs, ids, impl="pallas_interpret"))
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-
-
-def test_gather_dots_pallas_clamps_negative_ids(rng):
-    """Padding ids (-1) must not fault: they are clamped to row 0 and the
-    caller masks their scores."""
-    from grape_vector_db_tpu.ops.gather_pallas import gather_dots
-
-    n, d = 64, 128
-    vecs = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
-    q = jnp.asarray(rng.standard_normal((2, d)).astype(np.float32))
-    ids = jnp.asarray(np.array([[0, -1, 5], [n - 1, -1, -1]], dtype=np.int32))
-    got = np.asarray(gather_dots(q, vecs, ids, impl="pallas_interpret"))
-    ref = np.asarray(gather_dots(q, vecs, jnp.clip(ids, 0, n - 1), impl="xla"))
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-
-
-def test_beam_search_pallas_gather_matches_xla(rng):
-    """End-to-end beam search must return identical results under both
-    gather engines (same numerics: f32 everywhere)."""
-    from grape_vector_db_tpu.ops.graph import beam_search, build_knn_graph
-
-    n, d = 600, 128
-    vecs = rng.standard_normal((n, d)).astype(np.float32)
-    vecs_j = jnp.asarray(vecs)
-    norms = jnp.linalg.norm(vecs_j, axis=1)
-    valid = jnp.ones(n, dtype=bool)
-    nbrs = build_knn_graph(vecs_j, norms, valid, m=8, rounds=4, seed=0)
-    q = jnp.asarray(rng.standard_normal((4, d)).astype(np.float32))
-    entries = jnp.arange(16, dtype=jnp.int32)
-    a = beam_search(q, vecs_j, norms, valid, entries, nbrs, k=10,
-                    pool=32, expand=4, iters=6, impl="xla")
-    b = beam_search(q, vecs_j, norms, valid, entries, nbrs, k=10,
-                    pool=32, expand=4, iters=6, impl="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
-    np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]),
-                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("metric", ["cosine", "dot", "euclidean"])
@@ -284,7 +213,7 @@ def test_scored_topk_large_corpus_segmax_route(rng):
 
 
 def test_hamming_mxu_matches_popcount(rng):
-    """The MXU sign-bit matmul form (default) must be bit-for-bit equal to
+    """The sign-bit matmul form (default) must be bit-for-bit equal to
     the XOR+popcount form — dot(s_q, s_x) = D - 2*hamming is exact integer
     algebra, including the zero pad bits both sides share."""
     a = rng.standard_normal((16, 100)).astype(np.float32)  # non-multiple of 32
@@ -295,248 +224,66 @@ def test_hamming_mxu_matches_popcount(rng):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_segmax_pallas_matches_exact(rng):
-    """The fused matmul+segmax kernel (interpreted) must return the exact
+def test_segmax_pallas_matches_exact(rng, interpret_kernels):
+    """The fused matmul + segment-max kernel (interpreted) returns the exact
     top-k — same values as scored_topk's exact engines, masked included."""
-    from grape_vector_db_tpu.ops.segmax_pallas import pallas_segmax_topk
+    from grape_vector_db_tpu.ops.segmax_pallas import segmax_topk
     from grape_vector_db_tpu.ops.distance import scored_topk
 
     n, d, b, k = 8192, 128, 16, 10
-    vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
-    norms = jnp.linalg.norm(vecs, axis=1)
+    vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.bfloat16)
+    norms = jnp.linalg.norm(vecs.astype(jnp.float32), axis=1)
     valid = jnp.asarray(rng.random(n) > 0.1)
     q = jnp.asarray(rng.standard_normal((b, d)), jnp.float32)
     for metric in ("cosine", "dot"):
-        rv, _ = scored_topk(q, vecs, norms, valid, k=k, metric=metric,
-                            chunk=n, mode="exact")
-        for layout in ("contig", "strided"):
-            for select in ("iterative", "verified", "twolevel"):
-                pv, _ = pallas_segmax_topk(q, vecs, norms, valid, k=k,
-                                           metric=metric, interpret=True,
-                                           layout=layout, select=select)
-                np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                                           rtol=1e-5, atol=1e-5)
+        for kk in (1, 10, 33):
+            rv, _ = scored_topk(q, vecs, norms, valid, k=kk, metric=metric,
+                                chunk=n, mode="exact")
+            pv, _ = segmax_topk(q, vecs, norms, valid, k=kk, metric=metric)
+            np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
+                                       rtol=1e-5, atol=1e-5)
     mask = jnp.asarray(rng.random(n) > 0.7)
     rv, _ = scored_topk(q, vecs, norms, valid, k=k, metric="cosine",
                         chunk=n, mode="exact", mask=mask)
-    for layout in ("contig", "strided"):
-        pv, _ = pallas_segmax_topk(q, vecs, norms, valid, k=k,
-                                   metric="cosine", interpret=True,
-                                   mask=mask, layout=layout)
-        np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                                   rtol=1e-5, atol=1e-5)
+    pv, _ = segmax_topk(q, vecs, norms, valid, k=k, metric="cosine",
+                        mask=mask)
+    np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
+                               rtol=1e-5, atol=1e-5)
 
 
-def test_segmax2_pallas_matches_exact(rng):
-    """Top-2-per-segment engine: exact for every k (k=1 is gather-free),
-    masked search, and the adversarial case where many of the true top-k
-    live in ONE segment (only the m2-rescore path can find rows 3..k)."""
-    from grape_vector_db_tpu.ops.segmax_pallas import pallas_segmax2_topk
+def test_segmax_pallas_many_topk_rows_in_one_segment(rng, interpret_kernels):
+    """Adversarial placement: 12 near-duplicates of one strong row share ONE
+    strided segment, so most of the true top-10 hide behind a single
+    segment maximum — the phase-2 rescore of that segment's rows must
+    surface all of them, with their own row ids."""
+    from grape_vector_db_tpu.ops.segmax_pallas import CB, SUB, segmax_topk
     from grape_vector_db_tpu.ops.distance import scored_topk
 
-    n, d, b = 8192, 128, 16
-    vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
-    norms = jnp.linalg.norm(vecs, axis=1)
-    valid = jnp.asarray(rng.random(n) > 0.1)
-    q = jnp.asarray(rng.standard_normal((b, d)), jnp.float32)
-    for metric in ("cosine", "dot"):
-        for k in (1, 2, 10, 33):
-            rv, _ = scored_topk(q, vecs, norms, valid, k=k, metric=metric,
-                                chunk=n, mode="exact")
-            for impl in ("eqfold", "selfold"):
-                pv, _ = pallas_segmax2_topk(q, vecs, norms, valid, k=k,
-                                            metric=metric, interpret=True,
-                                            impl=impl)
-                np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                                           rtol=1e-5, atol=1e-5)
-    mask = jnp.asarray(rng.random(n) > 0.7)
-    rv, _ = scored_topk(q, vecs, norms, valid, k=10, metric="cosine",
-                        chunk=n, mode="exact", mask=mask)
-    pv, _ = pallas_segmax2_topk(q, vecs, norms, valid, k=10,
-                                metric="cosine", interpret=True, mask=mask)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                               rtol=1e-5, atol=1e-5)
-    # 12 near-duplicates of one strong row, all in strided segment
-    # (blk=1, j=5): member rows 4096 + 5 + m*128
-    v2 = np.asarray(vecs).copy()
-    for m in range(12):
-        v2[4096 + 5 + m * 128] = v2[77] * (1.0 + 1e-4 * m)
-    v2 = jnp.asarray(v2)
-    n2 = jnp.linalg.norm(v2, axis=1)
-    av = jnp.ones(n, bool)
-    rv, _ = scored_topk(q, v2, n2, av, k=10, metric="dot", chunk=n,
-                        mode="exact")
-    for impl in ("eqfold", "selfold"):
-        pv, _ = pallas_segmax2_topk(q, v2, n2, av, k=10, metric="dot",
-                                    interpret=True, impl=impl)
-        np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                                   rtol=1e-5, atol=1e-5)
-
-
-def test_segmax4_pallas_matches_exact(rng):
-    """Top-4-per-segment engine: exact for every k (k <= 3 is gather-free),
-    masked search, and two adversarial placements — many of the true top-k
-    stacked in ONE segment (only the m4-rescore can find ranks 4+), and the
-    top-k spread as PAIRS/TRIPLES across segments (the rank-2/3 known-
-    candidate pools must surface them without any rescore)."""
-    from grape_vector_db_tpu.ops.segmax_pallas import pallas_segmax4_topk
-    from grape_vector_db_tpu.ops.distance import scored_topk
-
-    n, d, b = 8192, 128, 16
-    vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
-    norms = jnp.linalg.norm(vecs, axis=1)
-    valid = jnp.asarray(rng.random(n) > 0.1)
-    q = jnp.asarray(rng.standard_normal((b, d)), jnp.float32)
-    for metric in ("cosine", "dot"):
-        for k in (1, 2, 3, 4, 10, 33):
-            rv, _ = scored_topk(q, vecs, norms, valid, k=k, metric=metric,
-                                chunk=n, mode="exact")
-            pv, _ = pallas_segmax4_topk(q, vecs, norms, valid, k=k,
-                                        metric=metric, interpret=True)
-            np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                                       rtol=1e-5, atol=1e-5)
-    mask = jnp.asarray(rng.random(n) > 0.7)
-    rv, _ = scored_topk(q, vecs, norms, valid, k=10, metric="cosine",
-                        chunk=n, mode="exact", mask=mask)
-    pv, _ = pallas_segmax4_topk(q, vecs, norms, valid, k=10,
-                                metric="cosine", interpret=True, mask=mask)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                               rtol=1e-5, atol=1e-5)
-    # 12 near-duplicates of one strong row, all in strided segment
-    # (blk=1, j=5): ranks 4..12 reachable only through the m4 rescore
-    v2 = np.asarray(vecs).copy()
-    for m in range(12):
-        v2[4096 + 5 + m * 128] = v2[77] * (1.0 + 1e-4 * m)
-    v2 = jnp.asarray(v2)
-    n2 = jnp.linalg.norm(v2, axis=1)
-    av = jnp.ones(n, bool)
-    rv, _ = scored_topk(q, v2, n2, av, k=10, metric="dot", chunk=n,
-                        mode="exact")
-    pv, _ = pallas_segmax4_topk(q, v2, n2, av, k=10, metric="dot",
-                                interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                               rtol=1e-5, atol=1e-5)
-    # pairs + triples spread across segments: strided segment of row c is
-    # c % 128 within block c // 4096 — place 2-3 boosted rows per segment
-    v3 = np.asarray(vecs).copy()
-    strong = rng.standard_normal(d).astype(np.float32) * 3.0
-    placements = [(0, 9, (0, 1)), (0, 30, (2, 5, 9)), (1, 9, (4, 7)),
-                  (1, 77, (0, 3, 8))]
-    for blk, j, members in placements:
-        for t, m in enumerate(members):
-            v3[blk * 4096 + j + m * 128] = strong * (1.0 + 1e-3 * t)
-    v3 = jnp.asarray(v3)
-    n3 = jnp.linalg.norm(v3, axis=1)
-    rv, ri = scored_topk(q, v3, n3, av, k=10, metric="dot", chunk=n,
-                         mode="exact")
-    pv, pi = pallas_segmax4_topk(q, v3, n3, av, k=10, metric="dot",
-                                 interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                               rtol=1e-5, atol=1e-5)
-    # INDEX parity: the gather-free index recovery (rowsj reconstruction,
-    # eqfold member recovery, the dedup mask) is the novelty of this engine
-    # — a wrong spb_ stride would pass the value check above yet return
-    # wrong rows. Exact ties exist across segments (each placement reuses
-    # scale 1+1e-3*t from t=0), so instead of rank-for-rank equality assert
-    # (a) every returned index's recomputed score equals the returned value
-    # and (b) no duplicate ids within a query's top-k.
-    pi_np, pv_np = np.asarray(pi), np.asarray(pv)
-    true_scores = np.asarray(q, np.float64) @ np.asarray(v3, np.float64).T
-    np.testing.assert_allclose(
-        np.take_along_axis(true_scores, pi_np, axis=1), pv_np,
-        rtol=1e-4, atol=1e-4)
-    for row in pi_np:
-        assert len(set(row.tolist())) == len(row)
-    # bf16 storage (the production corpus dtype): phase 1 and the rescore
-    # must use the same arithmetic as score_block so values match exactly
-    vb = vecs.astype(jnp.bfloat16)
-    rv, _ = scored_topk(q, vb, norms, valid, k=10, metric="cosine",
-                        chunk=n, mode="exact")
-    pv, _ = pallas_segmax4_topk(q, vb, norms, valid, k=10,
-                                metric="cosine", interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_segmax4_sup_kernel_matches_plain_and_exact(rng):
-    """The sup-output kernel variant (impl="sup": per-block supersegment
-    maxima of m1/m2 emitted as extra [B, nblocks] outputs, phase-2
-    selections start from them) must (a) emit s1/s2 planes equal to the
-    reshape-max _twolevel_topk would compute, including -inf invalid
-    segments, and (b) produce value+index-valid top-k identical to the
-    exact baseline — at nblocks >= kk (two-level engaged, partial SUPW
-    output block) AND nblocks < kk (iterative fallback inside the pre
-    selection)."""
-    from grape_vector_db_tpu.ops.segmax_pallas import (
-        CB, SEG, make_weight_plane, pallas_segmax4_topk,
-        segmax4_sup_scores_pallas, segmax4_scores_pallas)
-    from grape_vector_db_tpu.ops.distance import prepare_queries, scored_topk
-
-    d, b = 128, 4
-    for n in (65_536, 8_192):          # nblocks = 16 (>= kk) and 2 (< kk)
-        vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
-        norms = jnp.linalg.norm(vecs, axis=1)
-        valid = jnp.asarray(rng.random(n) > 0.1)
-        q = jnp.asarray(rng.standard_normal((b, d)), jnp.float32)
-        qp = prepare_queries(q, "cosine")
-        w = make_weight_plane(norms, valid, "cosine")
-        outs_plain = segmax4_sup_scores_pallas(qp, vecs, w, interpret=True)
-        m1, m2 = outs_plain[0], outs_plain[1]
-        s1, s2 = outs_plain[7], outs_plain[8]
-        nblocks, spb = n // CB, CB // SEG
-        np.testing.assert_array_equal(
-            np.asarray(s1), np.asarray(m1).reshape(b, nblocks, spb).max(-1))
-        np.testing.assert_array_equal(
-            np.asarray(s2), np.asarray(m2).reshape(b, nblocks, spb).max(-1))
-        # m/i planes bitwise-match the plain kernel (shared _segmax4_core)
-        outs_ref = segmax4_scores_pallas(qp, vecs, w, interpret=True)
-        for a, r in zip(outs_plain[:7], outs_ref):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(r))
-        for k in (1, 3, 4, 10, 33):
-            rv, _ = scored_topk(q, vecs, norms, valid, k=k, metric="cosine",
-                                chunk=n, mode="exact")
-            pv, pi = pallas_segmax4_topk(q, vecs, norms, valid, k=k,
-                                         metric="cosine", interpret=True,
-                                         impl="sup")
-            np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
-                                       rtol=1e-5, atol=1e-5)
-            # returned indices must rescore to the returned values and be
-            # distinct within each row (the sup path changes WHICH segments
-            # are inspected, never the value/index contract)
-            pi_np, pv_np = np.asarray(pi), np.asarray(pv)
-            vn = np.asarray(vecs, np.float64)
-            vn = vn / np.linalg.norm(vn, axis=1, keepdims=True)
-            qn = np.asarray(q, np.float64)
-            qn = qn / np.linalg.norm(qn, axis=1, keepdims=True)
-            true_scores = qn @ vn.T
-            np.testing.assert_allclose(
-                np.take_along_axis(true_scores, pi_np, axis=1),
-                np.minimum(pv_np, 1.0), rtol=1e-4, atol=1e-4)
-            for row in pi_np:
-                assert len(set(row.tolist())) == len(row)
-    # masked parity at the two-level size
-    n = 65_536
-    vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
-    norms = jnp.linalg.norm(vecs, axis=1)
+    n, d, b = 8192, 128, 4
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    members = [CB + 5 + m * SUB for m in range(12)]   # block 1, column 5
+    for m, row in enumerate(members):
+        v[row] = v[77] * (4.0 + 1e-2 * m)
+    vecs = jnp.asarray(v, jnp.bfloat16)
+    norms = jnp.linalg.norm(vecs.astype(jnp.float32), axis=1)
     valid = jnp.ones(n, bool)
-    q = jnp.asarray(rng.standard_normal((b, d)), jnp.float32)
-    mask = jnp.asarray(rng.random(n) > 0.7)
-    rv, _ = scored_topk(q, vecs, norms, valid, k=10, metric="cosine",
-                        chunk=n, mode="exact", mask=mask)
-    pv, _ = pallas_segmax4_topk(q, vecs, norms, valid, k=10,
-                                metric="cosine", interpret=True,
-                                mask=mask, impl="sup")
+    q = jnp.asarray(v[77:78] + 0.01 * rng.standard_normal((b, d)),
+                    jnp.float32)
+    rv, ri = scored_topk(q, vecs, norms, valid, k=10, metric="dot", chunk=n,
+                         mode="exact")
+    pv, pi = segmax_topk(q, vecs, norms, valid, k=10, metric="dot")
     np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
                                rtol=1e-5, atol=1e-5)
+    for row in np.asarray(pi):
+        assert len(set(row.tolist())) == len(row)
+        assert len(set(row.tolist()) & set(members)) >= 9
 
 
-def test_segmax4_pallas_exact_ties_return_distinct_rows(rng):
+def test_segmax_pallas_exact_ties_return_distinct_rows(rng, interpret_kernels):
     """EXACT intra-segment score ties (duplicate vectors — common in real
-    corpora): the eqfold member recovery must break ties so ranks 1..3 of a
-    segment holding identical rows surface as DISTINCT row ids, not the same
-    id repeated (which would silently drop the other tied rows). Uses k=3 so
-    r4=0 — no rescore can paper over a collision."""
-    from grape_vector_db_tpu.ops.segmax_pallas import pallas_segmax4_topk
+    corpora): the rescore must return every tied row as a DISTINCT row id,
+    not the same id repeated (which would silently drop the other rows)."""
+    from grape_vector_db_tpu.ops.segmax_pallas import SUB, segmax_topk
     from grape_vector_db_tpu.ops.distance import scored_topk
 
     n, d, b = 8192, 128, 4
@@ -547,68 +294,52 @@ def test_segmax4_pallas_exact_ties_return_distinct_rows(rng):
     base = rng.standard_normal(d).astype(np.float32)
     q_np = (base[None, :] + 0.1 * rng.standard_normal((b, d))).astype(
         np.float32)
-    strong = base * 10.0
-    # three IDENTICAL copies inside one strided segment (blk=0, j=17,
-    # members 2/6/11 -> rows 17 + m*128) — m1 == m2 == m3 exactly
-    tied_rows = [17 + m * 128 for m in (2, 6, 11)]
+    # three IDENTICAL copies inside one strided segment (block 0, column 17)
+    tied_rows = [17 + m * SUB for m in (2, 6, 11)]
     for r in tied_rows:
-        vecs[r] = strong
-    vecs = jnp.asarray(vecs)
-    norms = jnp.linalg.norm(vecs, axis=1)
+        vecs[r] = base * 10.0
+    vecs = jnp.asarray(vecs, jnp.bfloat16)
+    norms = jnp.linalg.norm(vecs.astype(jnp.float32), axis=1)
     valid = jnp.ones(n, bool)
     q = jnp.asarray(q_np)
-    for k, impl in ((3, "plain"), (4, "plain"), (10, "plain"), (10, "sup")):
+    for k in (3, 4, 10):
         rv, _ = scored_topk(q, vecs, norms, valid, k=k, metric="dot",
                             chunk=n, mode="exact")
-        pv, pi = pallas_segmax4_topk(q, vecs, norms, valid, k=k,
-                                     metric="dot", interpret=True, impl=impl)
+        pv, pi = segmax_topk(q, vecs, norms, valid, k=k, metric="dot")
         np.testing.assert_allclose(np.asarray(pv), np.asarray(rv),
                                    rtol=1e-5, atol=1e-5)
-        pi_np = np.asarray(pi)
-        for row in pi_np:
+        for row in np.asarray(pi):
             assert len(set(row.tolist())) == len(row), (k, row)
-        # the three tied rows must ALL be present when k covers them
-        if k >= 3:
-            for row in pi_np:
-                assert set(tied_rows) <= set(row.tolist()[:max(3, k)]), (
-                    k, sorted(tied_rows), sorted(row.tolist()))
+            assert set(tied_rows) <= set(row.tolist()), (k, row)
 
 
-def test_segmax_engines_degenerate_validity_no_duplicate_ids(rng):
+def test_segmax_engines_degenerate_validity_no_duplicate_ids(
+        rng, interpret_kernels):
     """Large-capacity bucket holding FEW valid docs, concentrated in 3 fully
-    valid strided segments (96 rows < num_seg picks needed): every rank
-    plane has only 3 finite segments, so the iterative selection's tail
-    repeatedly picks segment 0 (argmax over an all--inf plane, and -inf
-    masking is a no-op) — segment 0 IS one of the valid ones here, so
-    without the degenerate-plane guard the repeated rescore emits the same
-    finite-scored row ids multiple times, displacing true top-k rows."""
-    from grape_vector_db_tpu.ops.segmax_pallas import (
-        pallas_segmax_topk, pallas_segmax2_topk, pallas_segmax4_topk)
+    valid strided segments (96 rows, fewer finite segments than picks): the
+    iterative selection's tail repeatedly picks segment 0 (argmax over an
+    all--inf plane), and without the degenerate-plane guard the repeated
+    rescore emits the same row ids multiple times, displacing true rows."""
+    from grape_vector_db_tpu.ops.segmax_pallas import SUB, segmax_topk
 
     n, d, b, k = 8192, 128, 4, 10
-    vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
-    norms = jnp.linalg.norm(vecs, axis=1)
-    # all 32 members of strided segments 0/1/2 in block 0: rows j + m*128
+    vecs = jnp.asarray(rng.standard_normal((n, d)), jnp.bfloat16)
+    norms = jnp.linalg.norm(vecs.astype(jnp.float32), axis=1)
+    # all 32 members of strided segments 0/1/2 in block 0: rows j + m*SUB
     valid_np = np.zeros(n, bool)
-    valid_rows = np.array([j + m * 128 for j in (0, 1, 2) for m in range(32)])
+    valid_rows = np.array([j + m * SUB for j in (0, 1, 2) for m in range(32)])
     valid_np[valid_rows] = True
     valid = jnp.asarray(valid_np)
     q = jnp.asarray(rng.standard_normal((b, d)), jnp.float32)
-    # float64 oracle over the valid rows only
-    sc = (np.asarray(q, np.float64)
-          @ np.asarray(vecs, np.float64)[valid_rows].T)      # [B, 96]
+    qb = np.asarray(q.astype(jnp.bfloat16), np.float64)
+    sc = qb @ np.asarray(vecs, np.float64)[valid_rows].T      # [B, 96]
     oracle_v = -np.sort(-sc, axis=1)[:, :k]
-    valid_set = set(valid_rows.tolist())
-    import functools as _ft
-    for eng in (pallas_segmax_topk, pallas_segmax2_topk, pallas_segmax4_topk,
-                _ft.partial(pallas_segmax4_topk, impl="sup")):
-        pv, pi = eng(q, vecs, norms, valid, k=k, metric="dot",
-                     interpret=True)
-        pv, pi = np.asarray(pv), np.asarray(pi)
-        np.testing.assert_allclose(pv, oracle_v, rtol=1e-4, atol=1e-4)
-        for row_i in pi:
-            assert len(set(row_i.tolist())) == len(row_i), (eng, row_i)
-            assert set(row_i.tolist()) <= valid_set, (eng, row_i)
+    pv, pi = segmax_topk(q, vecs, norms, valid, k=k, metric="dot")
+    pv, pi = np.asarray(pv), np.asarray(pi)
+    np.testing.assert_allclose(pv, oracle_v, rtol=1e-4, atol=1e-4)
+    for row_i in pi:
+        assert len(set(row_i.tolist())) == len(row_i), row_i
+        assert set(row_i.tolist()) <= set(valid_rows.tolist()), row_i
 
 
 def test_twolevel_topk_matches_topk(rng):
@@ -674,9 +405,8 @@ def test_fetch_scores_slots_roundtrip(rng):
     idxs[3, 1] = -1
     idxs[4, 0] = 2**31 - 1
     # real slot ids are SMALL ints: as f32 bit patterns those are denormals,
-    # which the TPU flushes to zero — the pack must therefore carry them in
-    # integer lanes (measured on v5e: f32-lane packing returned slot 0 for
-    # every result). CPU can't reproduce the flush; keep the values anyway so
+    # which a device may flush to zero — the pack must therefore carry them
+    # in integer lanes. The CPU does not flush; keep the values anyway so
     # the intent is pinned.
     idxs[0, :5] = np.arange(5, dtype=np.int32)
     vals[2, 4] = 1e-40  # denormal score must survive the int32 bitcast too

@@ -109,7 +109,7 @@ def test_2d_mesh_replica_sharded(rng):
         assert [str(i) for i in row_i] == [h[0] for h in w]
 
 
-# -- sharded IVF (VERDICT r1 item 6) -------------------------------------------------
+# -- sharded IVF -------------------------------------------------------------------
 
 
 def test_sharded_ivf_matches_single_device_full_probe(rng, mesh):
@@ -233,30 +233,29 @@ def test_sharded_int8_ivf_capacity_config(rng, mesh):
     assert {h[0] for h in got} == allowed
 
 
-def test_sharded_ivf_pallas_matches_xla(rng, mesh):
-    """The per-device Pallas DMA probe inside shard_map (interpreted on the
-    CPU mesh) returns exactly what the XLA gather probe returns."""
+def test_sharded_ivf_pallas_matches_xla(rng, mesh, interpret_kernels):
+    """The per-device probe kernel inside shard_map (interpreted on the CPU
+    mesh) returns exactly what the XLA gather probe returns."""
     from grape_vector_db_tpu.parallel import ShardedIvfIndex
 
     dim, n, k = 16, 480, 5
     vecs = rng.standard_normal((n, dim)).astype(np.float32)
     ids = [f"d{i}" for i in range(n)]
     a = ShardedIvfIndex(dim, mesh=mesh, storage_dtype="float32",
-                        nlist=4, nprobe=4, initial_capacity=2048,
-                        use_pallas="force")
+                        nlist=4, nprobe=4, initial_capacity=2048)
     b = ShardedIvfIndex(dim, mesh=mesh, storage_dtype="float32",
-                        nlist=4, nprobe=4, initial_capacity=2048,
-                        use_pallas=False)
+                        nlist=4, nprobe=4, initial_capacity=2048)
+    a._use_kernel = True
     a.add_batch(ids, vecs)
     b.add_batch(ids, vecs)
-    assert a._use_pallas and a.recip is not None
+    assert a.recip is not None
     assert a.list_cap % 8 == 0
 
     q = vecs[:8]
     for ra, rb in zip(a.search_batch(q, k), b.search_batch(q, k)):
         assert [x[0] for x in ra] == [x[0] for x in rb]
 
-    # delete + filter mask through the pallas path
+    # delete + filter mask through the kernel path
     a.remove_batch(["d3"])
     assert all(h[0] != "d3" for h in a.search_batch(vecs[3:4], k)[0])
     allowed = {"d1", "d5", "d9"}
@@ -264,7 +263,7 @@ def test_sharded_ivf_pallas_matches_xla(rng, mesh):
     assert {h[0] for h in got} == allowed
 
 
-def test_sharded_int8_ivf_pallas_matches_xla(rng, mesh):
+def test_sharded_int8_ivf_pallas_matches_xla(rng, mesh, interpret_kernels):
     from grape_vector_db_tpu.parallel import ShardedInt8IvfIndex
 
     dim, n, k = 16, 480, 5
@@ -273,13 +272,14 @@ def test_sharded_int8_ivf_pallas_matches_xla(rng, mesh):
     for keep in (True, False):
         a = ShardedInt8IvfIndex(dim, mesh=mesh, storage_dtype="float32",
                                 nlist=4, nprobe=4, initial_capacity=2048,
-                                keep_bf16=keep, use_pallas="force")
+                                keep_bf16=keep)
+        a._use_kernel = True
         b = ShardedInt8IvfIndex(dim, mesh=mesh, storage_dtype="float32",
                                 nlist=4, nprobe=4, initial_capacity=2048,
-                                keep_bf16=keep, use_pallas=False)
+                                keep_bf16=keep)
         a.add_batch(ids, vecs)
         b.add_batch(ids, vecs)
-        assert a._use_pallas and a.factor is not None
+        assert a.factor.shape == (4, a.list_cap)
         q = vecs[:8]
         for ra, rb in zip(a.search_batch(q, k), b.search_batch(q, k)):
             assert [x[0] for x in ra] == [x[0] for x in rb], keep
@@ -342,7 +342,7 @@ def test_sharded_int4_ivf_capacity_config(rng, mesh):
     assert {h[0] for h in got} == allowed
 
 
-def test_sharded_int4_ivf_pallas_matches_xla(rng, mesh):
+def test_sharded_int4_ivf_pallas_matches_xla(rng, mesh, interpret_kernels):
     from grape_vector_db_tpu.parallel import ShardedInt4IvfIndex
 
     dim, n, k = 16, 480, 5
@@ -351,13 +351,14 @@ def test_sharded_int4_ivf_pallas_matches_xla(rng, mesh):
     for keep in (True, False):
         a = ShardedInt4IvfIndex(dim, mesh=mesh, storage_dtype="float32",
                                 nlist=4, nprobe=4, initial_capacity=2048,
-                                keep_bf16=keep, use_pallas="force")
+                                keep_bf16=keep)
+        a._use_kernel = True
         b = ShardedInt4IvfIndex(dim, mesh=mesh, storage_dtype="float32",
                                 nlist=4, nprobe=4, initial_capacity=2048,
-                                keep_bf16=keep, use_pallas=False)
+                                keep_bf16=keep)
         a.add_batch(ids, vecs)
         b.add_batch(ids, vecs)
-        assert a._use_pallas and a.factor is not None
+        assert a.factor.shape == (4, a.list_cap)
         q = vecs[:8]
         for ra, rb in zip(a.search_batch(q, k), b.search_batch(q, k)):
             assert [x[0] for x in ra] == [x[0] for x in rb], keep
@@ -365,7 +366,8 @@ def test_sharded_int4_ivf_pallas_matches_xla(rng, mesh):
         assert all(h[0] != "d2" for h in a.search_batch(vecs[2:3], k)[0])
 
 
-def test_sharded_ivf_striped_placement_balances_devices(rng, mesh):
+def test_sharded_ivf_striped_placement_balances_devices(rng, mesh,
+                                                        interpret_kernels):
     """Striped positions spread each list's rows uniformly across device
     slices (sequential packing would saturate device 0's slice while the
     rest idle — SPMD lockstep means the fullest slice gates every query),
@@ -376,8 +378,8 @@ def test_sharded_ivf_striped_placement_balances_devices(rng, mesh):
     vecs = rng.standard_normal((n, dim)).astype(np.float32)
     ids = [f"d{i}" for i in range(n)]
     ivf = ShardedIvfIndex(dim, mesh=mesh, storage_dtype="float32",
-                          nlist=8, nprobe=8, initial_capacity=2048,
-                          use_pallas="force")
+                          nlist=8, nprobe=8, initial_capacity=2048)
+    ivf._use_kernel = True
     ivf.add_batch(ids, vecs)
     s = ivf.n_shards
     c_local = ivf.list_cap // s
@@ -387,13 +389,11 @@ def test_sharded_ivf_striped_placement_balances_devices(rng, mesh):
         occ = per_dev[lst]
         assert occ.max() - occ.min() <= 1, (lst, occ.tolist())
 
-    # the striped + ragged pallas path agrees with the XLA probe
+    # the striped + fill-bounded kernel path agrees with the XLA probe
     ivf2 = ShardedIvfIndex(dim, mesh=mesh, storage_dtype="float32",
-                           nlist=8, nprobe=8, initial_capacity=2048,
-                           use_pallas=False)
+                           nlist=8, nprobe=8, initial_capacity=2048)
     ivf2.add_batch(ids, vecs)
     queries = vecs[:8] + 0.001 * rng.standard_normal((8, dim)).astype(np.float32)
-    assert ivf._use_pallas
     for a, b in zip(ivf.search_batch(queries, 5),
                     ivf2.search_batch(queries, 5)):
         assert [x[0] for x in a] == [x[0] for x in b]
@@ -405,7 +405,6 @@ def test_sharded_ivf_2d_replica_mesh_matches_1d(rng):
     equal the 1D mesh (independent serving lanes)."""
     import jax
 
-    from grape_vector_db_tpu.ops.ivf_pallas import make_recip
     from grape_vector_db_tpu.ops.kmeans import assign_clusters, kmeans
     from grape_vector_db_tpu.parallel import make_mesh
     from grape_vector_db_tpu.parallel.mesh import (

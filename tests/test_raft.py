@@ -219,7 +219,7 @@ def test_election_without_prevote_still_works():
 
 
 def test_match_index_excludes_stale_uncommitted_tail():
-    """Raft safety regression (ADVICE r1, high): a follower whose log carries
+    """Raft safety regression: a follower whose log carries
     a stale uncommitted tail from an earlier term passes the prev check on an
     empty heartbeat — it must report match_index = prev_log_index +
     len(entries), NOT its own last_log_index, or the leader counts it toward
@@ -251,7 +251,7 @@ def test_match_index_excludes_stale_uncommitted_tail():
 
 
 def test_propose_success_when_entry_compacted_during_wait():
-    """ADVICE r1 (low): if snapshot compaction advances past the proposed
+    """If snapshot compaction advances past the proposed
     index while propose() waits, the entry committed+applied — that's
     success, not 'overwritten by a new leader'."""
     c = RaftTestCluster(3, config=FAST)

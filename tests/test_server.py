@@ -65,7 +65,7 @@ def test_grpc_documents_and_modes(grpc_pair):
     db, client = grpc_pair
     docs = [
         pb.Document(id=f"d{i}", title=f"T{i}",
-                    content=f"all about {'tpus' if i % 2 == 0 else 'pasta'} {i}",
+                    content=f"all about {'gpus' if i % 2 == 0 else 'pasta'} {i}",
                     metadata={"i": str(i)})
         for i in range(10)
     ]
@@ -73,12 +73,12 @@ def test_grpc_documents_and_modes(grpc_pair):
     assert list(resp.ids) == [f"d{i}" for i in range(10)]
 
     got = client.call("GetDocument", pb.GetDocumentRequest(id="d4"))
-    assert got.found and "tpus" in got.document.content
+    assert got.found and "gpus" in got.document.content
 
     for mode in ("semantic", "text", "hybrid"):
         sr = client.call(
             "SearchDocuments",
-            pb.SearchDocumentsRequest(query="tpus", limit=5, mode=mode),
+            pb.SearchDocumentsRequest(query="gpus", limit=5, mode=mode),
         )
         assert not sr.error
         if mode in ("text", "hybrid"):
@@ -173,12 +173,12 @@ def test_rest_health_metrics_stats(rest):
 def test_rest_documents_batch_and_unknown_route(rest):
     _, base = rest
     code, out = _req("POST", f"{base}/api/v1/documents/batch", {
-        "documents": [{"id": "a", "content": "hello tpu world"},
+        "documents": [{"id": "a", "content": "hello gpu world"},
                       {"id": "b", "content": "pasta recipe"}]
     })
     assert code == 200 and out["ids"] == ["a", "b"]
     code, out = _req("POST", f"{base}/api/v1/search",
-                     {"mode": "text", "query": "tpu", "limit": 5})
+                     {"mode": "text", "query": "gpu", "limit": 5})
     assert code == 200 and out["results"][0]["id"] == "a"
     code, _ = _req("GET", f"{base}/api/v1/nope")
     assert code == 404

@@ -367,7 +367,7 @@ def test_azure_provider_url_and_headers(monkeypatch):
 
 
 def test_batching_executor_pad_to_fixed_shape():
-    """pad_to pads every launch to one row count (one jit shape on TPU) and
+    """pad_to pads every launch to one row count (one jit shape) and
     each caller still gets exactly its own row back."""
     shapes = []
 

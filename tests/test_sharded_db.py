@@ -1,10 +1,10 @@
-"""Sharded index kinds through the PRODUCT API (VERDICT r2 item 1).
+"""Sharded index kinds through the PRODUCT API.
 
 The mesh engines (parallel/mesh.py) must be reachable from VectorDatabase /
 EmbeddedVectorDB / ClusterNode — not just as raw index classes. These tests
 drive `kind="sharded_*"` through `batch_add_documents`/`search` on the
 8-device CPU mesh, including the ClusterNode-with-local-mesh composition
-(DCN scatter-gather between nodes x ICI shard_map within a node — the full
+(DCN scatter-gather between nodes x NVLink shard_map within a node — the full
 two-level form of the reference's scatter-gather, shard.rs:759-901).
 """
 
@@ -189,7 +189,7 @@ def test_embedded_db_sharded_kind(tmp_path, rng):
 
 def test_cluster_node_serves_local_mesh_index():
     """ClusterNode on a multi-device host auto-upgrades to the mesh-sharded
-    engine: node-level DCN scatter-gather composed with ICI shard_map — the
+    engine: node-level DCN scatter-gather composed with NVLink shard_map — the
     full two-level form of the reference's scatter-gather (shard.rs:759-901,
     where the inner level was mock)."""
     from grape_vector_db_tpu.distributed.cluster_service import ClusterService

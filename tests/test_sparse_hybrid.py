@@ -136,9 +136,9 @@ def make_hybrid(rng):
     index = FlatDeviceIndex(dimension=16, storage_dtype="float32", initial_capacity=64)
     sparse = SparseIndex()
     contents = {
-        "d1": "machine learning on tpu hardware",
+        "d1": "machine learning on gpu hardware",
         "d2": "cooking pasta with tomato sauce",
-        "d3": "tpu kernels and machine learning compilers",
+        "d3": "gpu kernels and machine learning compilers",
         "d4": "gardening tips for spring",
     }
     vecs = {k: rng.standard_normal(16).astype(np.float32) for k in contents}
@@ -154,7 +154,7 @@ def make_hybrid(rng):
 def test_hybrid_all_strategies(rng, strategy):
     eng, vecs = make_hybrid(rng)
     req = HybridSearchRequest(
-        query="machine learning tpu",
+        query="machine learning gpu",
         dense_vector=vecs["d1"].tolist(),
         limit=3,
         fusion_strategy=strategy,
@@ -208,8 +208,8 @@ def test_adaptive_feedback_drift(rng):
 
 
 def test_classify_query_type():
-    assert classify_query_type("what is a tpu?") == "question"
-    assert classify_query_type("tpu") == "keyword"
+    assert classify_query_type("what is a gpu?") == "question"
+    assert classify_query_type("gpu") == "keyword"
     assert classify_query_type("def foo(x): return x") == "code"
     assert classify_query_type("find documents about large scale systems") == "semantic"
 

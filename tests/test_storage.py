@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from grape_vector_db_tpu.errors import BackupError
+from grape_vector_db_tpu.errors import BackupError, StorageError
 from grape_vector_db_tpu.storage import FileDocumentStore, MemoryDocumentStore
 from grape_vector_db_tpu.types import DocumentRecord
 
@@ -65,7 +65,8 @@ def test_file_store_compaction_and_reopen(tmp_path):
     s = FileDocumentStore(d)
     s.batch_insert([mkrec(i) for i in range(30)])
     s.compact()
-    assert os.path.getsize(os.path.join(d, "wal.gvdb")) == 0
+    with open(os.path.join(d, "wal.gvdb"), "rb") as f:
+        assert f.read() == b"GVDBW001"  # only the format header is left
     s.close()
     s3 = FileDocumentStore(d)
     assert s3.count() == 30
@@ -115,3 +116,47 @@ def test_torn_wal_tail_recovery(tmp_path):
     s2 = FileDocumentStore(d)
     assert s2.count() == 5  # torn tail ignored
     s2.close()
+
+
+def test_foreign_format_wal_is_refused_and_kept(tmp_path):
+    # A WAL from another format (here a msgpack-framed ["ins", []] record, as
+    # older versions wrote) must not be read as a torn tail and truncated.
+    d = tmp_path / "db"
+    d.mkdir()
+    body = b"\x92\xa3ins\x90"
+    old = len(body).to_bytes(4, "little") + body
+    (d / "wal.gvdb").write_bytes(old)
+    with pytest.raises(StorageError):
+        FileDocumentStore(str(d))
+    assert (d / "wal.gvdb").read_bytes() == old
+
+
+def test_corrupt_complete_wal_frame_is_refused(tmp_path):
+    d = str(tmp_path / "db")
+    s = FileDocumentStore(d)
+    s.batch_insert([mkrec(i) for i in range(3)])
+    s.flush()
+    s._wal.close()  # simulate a crash: no compaction on close
+    wal = os.path.join(d, "wal.gvdb")
+    with open(wal, "ab") as f:
+        f.write((6).to_bytes(4, "little") + b"garbag")
+    before = open(wal, "rb").read()
+    with pytest.raises(StorageError):
+        FileDocumentStore(d)
+    assert open(wal, "rb").read() == before
+
+
+def test_wal_replays_without_compaction(tmp_path):
+    d = str(tmp_path / "db")
+    s = FileDocumentStore(d)
+    s.batch_insert([mkrec(i) for i in range(4)])
+    s.put_kv("raft/term", b"\x07")
+    s.flush()
+    s._wal.close()  # killed before close(): only the WAL holds the writes
+    with open(os.path.join(d, "wal.gvdb"), "ab") as f:
+        f.write(b"\0" * 16)  # zero-filled tail a crash can leave
+    s2 = FileDocumentStore(d)
+    assert s2.count() == 4 and s2.get_kv("raft/term") == b"\x07"
+    s2.batch_insert([mkrec(9)])
+    s2.close()
+    assert FileDocumentStore(d).count() == 5
